@@ -1,0 +1,89 @@
+"""Port hygiene: vittf_tpu_torch never imports JAX, and nothing falls back
+to the CPU where a GPU was asked for."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _run(code_or_args, env_extra=None, cwd=REPO):
+    env = {**os.environ, **(env_extra or {})}
+    args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
+    return subprocess.run(
+        [sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vittf_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(vittf_tpu_torch.__path__, 'vittf_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "assert len(names) >= 20, names\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'vittf_tpu.')) or m == 'vittf_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok', len(names))\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_chip_smoke_fails_without_gpu():
+    res = _run(["chip_smoke.py"], env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """A directory holding chip_smoke.py and nothing else of the repo."""
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    res = _run(["chip_smoke.py"], cwd=tmp_path)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_infer_requires_cuda_without_cpu_flag(tmp_path, monkeypatch):
+    import numpy as np
+    import torch
+
+    from vittf_tpu_torch.cli import infer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    np.save(tmp_path / "v.npy", np.zeros((8, 8, 8), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer.main(["--data-path", str(tmp_path / "v.npy")])
+    for flag in ("--streamed", "--data-parallel"):
+        with pytest.raises(NotImplementedError):
+            infer.main(["--data-path", str(tmp_path / "v.npy"), "--cpu", flag])
+
+
+def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
+    from vittf_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "library_path", lambda: tmp_path / "missing.so")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.load_library()
+
+
+def test_library_name_tracks_sources(tmp_path, monkeypatch):
+    from vittf_tpu_torch import kernels
+
+    for name in ("a.cu", "b.cu"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    first = kernels.library_path()
+    assert first.parent == kernels.BUILD_DIR and first.suffix == ".so"
+    (tmp_path / "b.cu").write_text("// edited\n")
+    assert kernels.library_path() != first

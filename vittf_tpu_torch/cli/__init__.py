@@ -1,0 +1,1 @@
+"""cli layer of the PyTorch/CUDA port (see vittf_tpu/cli)."""

@@ -1,0 +1,105 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+The sources in ``vittf_tpu_torch/csrc/*.cu`` are compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o vittf_tpu_torch/_build/libvittf_kernels_<hash>.so csrc/*.cu
+
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The file name carries a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads from the cache. Pointers and the CUDA
+stream pass as ``c_void_p``; every entry point returns the
+``cudaGetLastError()`` seen right after its launch, and ``check`` raises on a
+nonzero code. Nothing here runs at import: the CPU tests import every module
+on a machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # set by the call that built or loaded the library
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the CUDA "
+        "kernels of vittf_tpu_torch are built from source at first use"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libvittf_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.vittf_attention_fwd.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, i32, vp, f32, vp,
+    ]
+    lib.vittf_attention_fwd.restype = i32
+    lib.vittf_similarity.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, f32, f32, i32, vp,
+    ]
+    lib.vittf_similarity.restype = i32
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    t0 = time.perf_counter()
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+        cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}"
+            )
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _declare(lib)
+    _lib = lib
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")

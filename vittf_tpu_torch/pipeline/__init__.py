@@ -1,0 +1,1 @@
+"""pipeline layer of the PyTorch/CUDA port (see vittf_tpu/pipeline)."""

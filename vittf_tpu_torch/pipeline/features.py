@@ -1,0 +1,291 @@
+"""Feature extraction: frozen ViT over volume slices, 3-axis merge.
+
+Port of ``vittf_tpu/pipeline/features.py`` (reference infer.py:130-210 and
+the ``--slice-along all`` sweep, infer.py:317-333). PyTorch runs eagerly,
+so the JAX package's ``lax.scan`` over slice batches is a Python loop with a
+carried fp32 accumulator, and the z, y, x sweeps run in turn for every
+volume shape (the JAX package fuses them into one jit for cubic volumes;
+the numbers are the same). Per slice batch: nearest resize of the raw
+slices, global min-max normalization, the ViT with the grayscale replicate
+and ImageNet normalization folded into the patch embed, the last block's k
+projection, CLS drop, and the slice-axis adaptive pool as a weighted
+accumulation. The three axes are summed as (z + y) + x.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from vittf_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from vittf_tpu_torch.ops.resize import (
+    _adaptive_avg_weight_matrix,
+    adaptive_avg_pool,
+    resize_nearest,
+)
+from vittf_tpu_torch.utils.tensor import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    imagenet_normalize,
+)
+
+# (permute of (W,H,D) → slice stack, image dims (of im_sz), output axis the
+# slice index lands on in the (F, o0, o1, o2) feature volume)
+_AXIS_RULES = {
+    "z": ((2, 0, 1), (0, 1), 3),  # slices (D, W, H); images (W,H)
+    "y": ((1, 0, 2), (0, 2), 2),  # slices (H, W, D); images (W,D)
+    "x": ((0, 1, 2), (1, 2), 1),  # slices (W, H, D); images (H,D)
+}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# volume dtypes kept as they are on the device; others are cast to fp32
+_KEEP_DTYPES = (torch.uint8, torch.int16, torch.float16, torch.bfloat16, torch.float32)
+
+
+@dataclass(frozen=True)
+class ExtractConfig:
+    """Feature-extraction settings (mirrors the infer CLI surface)."""
+
+    feature_output_size: int = 64
+    slice_along: str = "all"  # 'x' | 'y' | 'z' | 'all'
+    batch_size: int = 8
+    return_keys: tuple = ("k",)
+    precision: str = "default"  # 'default' (bf16 speed) | 'highest' (fp32 parity)
+    attn_impl: str = "auto"  # 'auto' (CUDA kernel on GPU) | 'plain'
+    compute_dtype: str = "float32"  # activation dtype: bfloat16 for speed
+    # Fast mode: run the ViT only on the slices nearest the pooled output
+    # grid (the reference's sketched shortcut, infer.py:160-166); NOT
+    # artifact-parity with the full sweep.
+    slice_subsample: bool = False
+    # only 'xla' (per-op blocks) is ported; the fused block kernel is later work
+    block_impl: str = "xla"
+
+
+def compute_im_sizes(
+    vol_shape: tuple[int, int, int], feature_output_size: int, patch_size: int
+) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
+    """Reference parity: infer.py:317-319 image/feature size rule."""
+    ref_fact = sorted(vol_shape)[1] / feature_output_size
+    im_sz = tuple(int(patch_size * (d // ref_fact)) for d in vol_shape)
+    feat_out_sz = tuple(d // patch_size for d in im_sz)
+    return im_sz, feat_out_sz
+
+
+def _qkv_index(key: str) -> int:
+    return {"q": 0, "k": 1, "v": 2}[key]
+
+
+def fold_grayscale_patch_embed(state_dict: dict) -> dict:
+    """Fold replicate-to-RGB + ImageNet normalize into the patch embed.
+
+    Scalar volumes replicate 1→3 channels before the per-channel ImageNet
+    normalize (infer.py:154-155). Both are affine per channel and the patch
+    embed is linear over channels, so for a grayscale pixel x:
+
+        Σ_c K[·,c,·]·(x − m_c)/s_c  =  (Σ_c K[·,c,·]/s_c)·x
+                                       + (b − Σ_c (m_c/s_c)·Σ_p K[p,c,·])
+
+    Returns a ``state_dict`` with a (D, 1, P, P) patch-embed weight; the
+    other tensors are shared, not copied.
+    """
+    k = state_dict["patch_embed.proj.weight"]  # (D, 3, P, P)
+    b = state_dict["patch_embed.proj.bias"]
+    inv_std = torch.tensor(IMAGENET_STD, dtype=torch.float32) ** -1
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32)
+    kf = k.float()
+    k1 = torch.einsum("dchw,c->dhw", kf, inv_std.to(k.device))[:, None]
+    shift = torch.einsum("dchw,c->d", kf, (mean * inv_std).to(k.device))
+    out = dict(state_dict)
+    out["patch_embed.proj.weight"] = k1.to(k.dtype)
+    out["patch_embed.proj.bias"] = (b.float() - shift).to(b.dtype)
+    return out
+
+
+def _slice_batch_features(model, batch, img_hw, f_hw, key_idx, precision, attn_impl, mima):
+    """One (B, C, a, b) raw slice batch through the ViT → per-key
+    (B, fh·fw, D) fp32 features from the last block's qkv projection (the
+    DINO hook target, infer.py).
+
+    ``mima``: the volume's global (min, max) as fp32 scalars; min-max
+    normalization runs here, after the nearest resize (which commutes with
+    elementwise ops exactly), so the volume stays compact until now.
+    """
+    dtype = model.pos_embed.dtype
+    imgs = resize_nearest(batch, img_hw)  # raw dtype
+    imgs = (imgs.float() - mima[0]) / (mima[1] - mima[0])
+    if imgs.shape[1] == 1 and model.patch_embed.proj.weight.shape[1] == 1:
+        # grayscale-folded patch embed: replicate + ImageNet normalize are
+        # already in the kernel/bias
+        imgs = imgs.to(dtype)
+    else:
+        if imgs.shape[1] == 1:
+            imgs = imgs.expand(-1, 3, -1, -1)  # replicate 1→3 (infer.py:154)
+        imgs = imagenet_normalize(imgs).to(dtype)
+    # only the requested thirds of the last block's projection
+    _, qkv = model.forward_raw(
+        imgs, precision=precision, attn_impl=attn_impl, return_qkv_last=True,
+        capture="qkv", stop_after_capture=True, capture_thirds=tuple(key_idx),
+    )
+    n, B = len(key_idx), batch.shape[0]
+    feats = qkv[:, 1:].reshape(B, f_hw[0] * f_hw[1], n, qkv.shape[-1] // n)  # CLS dropped
+    return [feats[:, :, i].float() for i in range(n)]
+
+
+def _subsample_slice_indices(S: int, target: int) -> np.ndarray:
+    """The reference's commented-out slice pick (infer.py:160-166):
+    nearest-resize of arange(S) to ``target`` slices, centered."""
+    idx = np.floor(np.arange(target) * (S / target)).astype(np.int64)
+    idx = np.minimum(idx, S - 1)
+    return idx + (S - idx.max()) // 2
+
+
+def _predecimate_fast_input(vol, im_sz, feat_out_sz):
+    """Fast-mode prefilter: decimate the volume ONCE when every read is
+    strided anyway.
+
+    When the in-plane nearest resize is an integer-ratio r subsample and
+    every picked plane index is a multiple of r, every element fast mode
+    touches lies on the ``vol[::r, ::r, ::r]`` lattice. Element-identical
+    by construction; the plane-pick equivalence is checked exactly here,
+    with a fall-through to the unfiltered volume where it does not hold.
+    The global min/max is taken from the full volume before this runs.
+    """
+    shp = tuple(vol.shape[-3:])
+    if not (shp[0] == shp[1] == shp[2] and im_sz[0] == im_sz[1] == im_sz[2]):
+        return vol
+    S, im, o_ax = shp[0], im_sz[0], feat_out_sz[0]
+    if im >= S or S % im or im <= o_ax:
+        return vol
+    r = S // im
+    pick = _subsample_slice_indices(S, o_ax)
+    if np.any(pick % r) or not np.array_equal(
+        pick // r, _subsample_slice_indices(im, o_ax)
+    ):
+        return vol
+    return vol[..., ::r, ::r, ::r].contiguous()
+
+
+def _axis_slices(vol, cfg, axis, im_sz, feat_out_sz, slice_subsample, pool):
+    """(S, C, a, b) slice stack (a view where possible), the (o_ax, S) pool
+    matrix (None when it is the identity) and the axis geometry."""
+    perm, im_dims, out_axis = _AXIS_RULES[axis]
+    img_hw = (im_sz[im_dims[0]], im_sz[im_dims[1]])
+    f_hw = (img_hw[0] // cfg.patch_size, img_hw[1] // cfg.patch_size)
+    o_ax = feat_out_sz[out_axis - 1]
+    vol4 = vol[None] if vol.ndim == 3 else vol  # (C, W, H, D)
+    S = vol4.shape[perm[0] + 1]
+    if not pool:
+        # single-axis reference semantics (infer.py:326 pool_fn=_noop)
+        o_ax, pool_mat = S, None
+    elif slice_subsample and S > o_ax:
+        # one picked slice per output slot: pick before the permute
+        pick = torch.from_numpy(_subsample_slice_indices(S, o_ax)).to(vol4.device)
+        vol4 = torch.index_select(vol4, perm[0] + 1, pick)
+        S, pool_mat = o_ax, None
+    elif S == o_ax:
+        pool_mat = None  # adaptive-pool windows are singletons
+    else:
+        pool_mat = _adaptive_avg_weight_matrix(S, o_ax)
+    slices = vol4.permute(perm[0] + 1, 0, perm[1] + 1, perm[2] + 1)
+    return slices, pool_mat, (img_hw, f_hw, o_ax, out_axis)
+
+
+def _extract_axis(model, vol, mima, model_cfg, cfg, axis, im_sz, feat_out_sz):
+    """One axis sweep → {key: pooled (F, o0, o1, o2) fp32 volume}."""
+    slices, pool_mat, (img_hw, f_hw, o_ax, out_axis) = _axis_slices(
+        vol, model_cfg, axis, im_sz, feat_out_sz, cfg.slice_subsample,
+        # the slice axis is pooled only in the 'all' sweep (infer.py:329 vs :326)
+        cfg.slice_along == "all",
+    )
+    key_idx = tuple(_qkv_index(k) for k in cfg.return_keys)
+    D = model_cfg.embed_dim
+    S, B = slices.shape[0], cfg.batch_size
+    acc = [
+        torch.zeros((o_ax, f_hw[0] * f_hw[1], D), dtype=torch.float32, device=vol.device)
+        for _ in key_idx
+    ]
+    w_pool = None
+    if pool_mat is not None:
+        w_pool = torch.as_tensor(pool_mat, dtype=torch.float32, device=vol.device)
+    for s0 in range(0, S, B):
+        batch = slices[s0:s0 + B].contiguous()
+        fks = _slice_batch_features(
+            model, batch, img_hw, f_hw, key_idx, cfg.precision, cfg.attn_impl, mima,
+        )
+        for a, fk in zip(acc, fks):
+            if w_pool is None:
+                # identity pool: slice i is output slot i
+                a[s0:s0 + fk.shape[0]] = fk
+            else:
+                # acc += w[:, batch] · fk, in place (fp32 GEMM, no TF32)
+                nb = fk.shape[0]
+                a.view(o_ax, -1).addmm_(w_pool[:, s0:s0 + nb], fk.reshape(nb, -1))
+    out = {}
+    for name, pooled in zip(cfg.return_keys, acc):
+        vol4 = pooled.reshape(o_ax, f_hw[0], f_hw[1], D)
+        vol4 = torch.movedim(vol4, -1, 0)  # (F, o_ax, fh, fw)
+        out[name] = torch.movedim(vol4, 1, out_axis)
+    return out
+
+
+def _pool_to(feat: torch.Tensor, feat_out_sz: tuple[int, int, int]) -> torch.Tensor:
+    if tuple(feat.shape[1:]) == tuple(feat_out_sz):
+        return feat
+    return adaptive_avg_pool(feat, feat_out_sz)
+
+
+def _build_model(
+    params: dict, model_cfg: ViTConfig, compute_dtype: str, device, grayscale: bool
+) -> VisionTransformer:
+    """The extraction ViT: weights folded for grayscale input when the
+    checkpoint is RGB, cast to the compute dtype, on ``device``."""
+    if grayscale and params["patch_embed.proj.weight"].shape[1] == 3:
+        params = fold_grayscale_patch_embed(params)
+    model = VisionTransformer.from_state_dict(model_cfg, params)
+    return model.to(device=device, dtype=_DTYPES[compute_dtype])
+
+
+def extract_features(
+    vol,
+    params: dict,
+    model_cfg: ViTConfig,
+    cfg: ExtractConfig = ExtractConfig(),
+    device: str | torch.device = "cpu",
+) -> dict[str, torch.Tensor]:
+    """Feature extraction over one, or all three, volume axes.
+
+    ``vol`` is a (W, H, D) scalar or (3, W, H, D) RGB volume (numpy or
+    tensor); ``params`` a hub-layout ``state_dict``. Returns
+    {key: (F, o0, o1, o2) fp32 tensor on ``device``}; for
+    ``slice_along='all'`` the per-axis pooled volumes are summed.
+    """
+    if cfg.block_impl != "xla":
+        raise NotImplementedError(
+            f"block_impl={cfg.block_impl!r}: the fused transformer-block kernel "
+            "(vittf_tpu/ops/fused_block.py) is not ported yet; use 'xla'"
+        )
+    if not torch.is_tensor(vol):
+        vol = torch.from_numpy(np.ascontiguousarray(vol))
+    if vol.dtype not in _KEEP_DTYPES:
+        vol = vol.float()
+    vol = vol.to(device)
+    im_sz, feat_out_sz = compute_im_sizes(
+        tuple(vol.shape[-3:]), cfg.feature_output_size, model_cfg.patch_size
+    )
+    model = _build_model(params, model_cfg, cfg.compute_dtype, device, vol.ndim == 3)
+    mima = (vol.min().float(), vol.max().float())
+    if cfg.slice_subsample:
+        vol = _predecimate_fast_input(vol, im_sz, feat_out_sz)
+
+    axes = ["z", "y", "x"] if cfg.slice_along == "all" else [cfg.slice_along]
+    out: dict[str, torch.Tensor] = {}
+    for ax in axes:
+        axis_feats = _extract_axis(
+            model, vol, mima, model_cfg, cfg, ax, im_sz, feat_out_sz
+        )
+        for k, v in axis_feats.items():
+            if cfg.slice_along == "all":
+                v = _pool_to(v, feat_out_sz)  # common grid before summing
+            out[k] = v if k not in out else out[k] + v
+    return out

@@ -1,0 +1,45 @@
+"""Dimension-lifting and normalization helpers on torch tensors.
+
+Port of ``vittf_tpu/utils/tensor.py`` (reference infer.py:10-40).
+"""
+from __future__ import annotations
+
+import torch
+
+# ImageNet normalization constants (reference: infer.py:39-40).
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def make_nd(t: torch.Tensor, n: int) -> torch.Tensor:
+    """Prepend singleton dimensions to ``t`` until it is ``n``-dimensional.
+
+    Raises if ``t.ndim > n`` (reference infer.py:10-18).
+    """
+    if n < t.ndim:
+        raise ValueError(
+            f"make_nd cannot reduce cardinality: ndim={t.ndim} > n={n}"
+        )
+    return t.reshape((1,) * (n - t.ndim) + tuple(t.shape))
+
+
+def make_4d(t: torch.Tensor) -> torch.Tensor:
+    return make_nd(t, 4)
+
+
+def make_5d(t: torch.Tensor) -> torch.Tensor:
+    return make_nd(t, 5)
+
+
+def norm_minmax(t: torch.Tensor) -> torch.Tensor:
+    """Scale ``t`` into [0, 1] by its global min/max (infer.py:32-34)."""
+    mi = t.min()
+    ma = t.max()
+    return (t - mi) / (ma - mi)
+
+
+def imagenet_normalize(images: torch.Tensor) -> torch.Tensor:
+    """Channel-wise ImageNet normalization of ``(..., 3, H, W)`` images."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
+    std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
+    return (images - mean.reshape(3, 1, 1)) / std.reshape(3, 1, 1)
