@@ -8,19 +8,31 @@ against its plain PyTorch twin at the main path's shapes, then drives the
 main path through the two CLI entry points (feature extraction with DINO
 ViT-S/8 at full width and random weights, then NTF prediction) and answers
 three interactive similarity requests with the features resident on the
-card. Phases:
+card; then the refinement path: the prediction CLI with the bilateral solver
+and the island filter, and three refined requests. Phases:
 
 1. card, versions, kernel build time;
 2. attention kernel vs plain at (8, 6, 4097, 64) bf16/fp32 and (2, 6, 17, 64),
    and fp32 on the fused (8, 4097, 1152) qkv buffer through
    ``multi_head_attention``;
 3. similarity kernel vs plain at feats (64³, 384), queries (1280, 384), C = 5;
-4. main path: ``infer`` on a 128³ phantom, ``predict_ntf``, three requests;
-   both kernels' launch counters must have risen;
-5. ``infer --fast`` on a 256³ phantom;
-6. a 64³ extraction through the kernels vs the plain twins;
-7. with ``--profile`` only: torch.profiler traces of a warm 128³ extraction
-   and of three requests (device busy time, idle share, top kernels).
+4. bilateral splat, slice and blur kernels vs plain on a 128³ crop (σ_s 7,
+   σ_l 5, C = 5: a (19, 19, 19, 52) lattice per class) and a ragged
+   (61, 47, 53) crop, and a 2-D solve through the kernels vs plain;
+5. main path: ``infer`` on a 128³ phantom, ``predict_ntf``, three requests;
+   the attention and similarity launch counters must have risen;
+6. refinement path: ``predict_ntf --bilateral-solver --largest-island`` on
+   the same volume and features, then three requests with
+   ``bilateral_solver=True, bls_shape_bucket=8``; the splat, slice and blur
+   counters must have risen in both, and the last request's maps agree with
+   the plain twins' (|Δ| ≤ 1 on ≤ 1e-3 of the voxels);
+7. whole-grid refinement of five classes on a 256³ sim grid, kernels vs
+   plain (same contract, wall times of both);
+8. ``infer --fast`` on a 256³ phantom;
+9. a 64³ extraction through the kernels vs the plain twins;
+10. with ``--profile`` only: torch.profiler traces of a warm 128³
+    extraction, of three requests and of three refined requests (device
+    busy time, idle share, top kernels).
 
 Every phase raises on failure. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it is a JSON object with
@@ -46,13 +58,26 @@ from vittf_tpu_torch.core.io import load_features
 from vittf_tpu_torch.models.dino import resolve_model
 from vittf_tpu_torch.models.vit import init_vit_params
 from vittf_tpu_torch.ops.attention import attention, attention_plain, multi_head_attention
+from vittf_tpu_torch.ops.bilateral import (
+    _blur,
+    _grid_extents,
+    bilateral_solve_gray,
+    bls_blur,
+    bls_slice,
+    bls_slice_plain,
+    bls_splat,
+    bls_splat_plain,
+)
 from vittf_tpu_torch.ops.similarity import class_mean_matrix, similarity, similarity_plain
 from vittf_tpu_torch.pipeline.annotations import annotations_from_labels
 from vittf_tpu_torch.pipeline.features import ExtractConfig, extract_features
 from vittf_tpu_torch.pipeline.ntf import compute_similarities, fuse_predictions
+from vittf_tpu_torch.pipeline.refine import make_bls_reference, refine_similarities_batched
 
 ATTN_SHAPE = (8, 6, 4097, 64)  # vits8 at fos 64: 8 slices, 6 heads, 64²+1 tokens
 SIM_N, SIM_F, SIM_PER_CLASS, SIM_C = 64**3, 384, 256, 5
+BLS_SS, BLS_SL, BLS_C = 7, 5, 5  # the refinement's grid (pipeline/refine.py) and 5 classes
+BLS_KERNELS = (bls_splat, bls_slice, bls_blur)
 
 
 def smi_line() -> str:
@@ -162,6 +187,69 @@ def phase_similarity(gen):
     return out
 
 
+def phase_bilateral(gen):
+    """K4, K5 and K8 against their plain twins on the same inputs. Luma is
+    integer-valued in [0, 255], as the uint8 reference the refinement feeds."""
+    out = {}
+    for shape, C in (((128,) * 3, BLS_C), ((61, 47, 53), 2)):
+        luma = torch.randint(0, 256, (C,) + shape, generator=gen).float().cuda()
+        t, c = (torch.rand((C,) + shape, generator=gen).cuda() for _ in range(2))
+        ext = _grid_extents(shape, BLS_SS, BLS_SL)
+        got = bls_splat(luma, t, c, BLS_SS, BLS_SL)
+        want = bls_splat_plain(luma, t, c, BLS_SS, BLS_SL)
+        torch.cuda.synchronize()
+        if not torch.equal(got[:, 0], want[:, 0]) or got[:, 0].sum().item() != luma.numel():
+            raise AssertionError(f"bls_splat {shape}: counts differ")
+        splat_err = check_close(f"bls_splat {shape} sums", got[:, 1:], want[:, 1:], 1e-5, 1e-6)
+        lat = torch.randn((C,) + ext, generator=gen).cuda()
+        got = bls_slice(luma, lat.reshape(C, -1, ext[-1]), BLS_SS, BLS_SL)
+        want = bls_slice_plain(luma, lat.reshape(C, -1, ext[-1]), BLS_SS, BLS_SL)
+        if not torch.equal(got, want):
+            raise AssertionError(f"bls_slice {shape}: differs from plain")
+        blur_err = check_close(f"bls_blur {(C,) + ext}", bls_blur(lat), _blur(lat), 1e-6, 1e-6)
+        times = {}
+        for name, fn in (
+            ("bls_splat", lambda: bls_splat(luma, t, c, BLS_SS, BLS_SL)),
+            ("bls_splat_plain", lambda: bls_splat_plain(luma, t, c, BLS_SS, BLS_SL)),
+            ("bls_slice", lambda: bls_slice(luma, lat, BLS_SS, BLS_SL)),
+            ("bls_slice_plain", lambda: bls_slice_plain(luma, lat, BLS_SS, BLS_SL)),
+            ("bls_blur", lambda: bls_blur(lat)),
+            ("bls_blur_plain", lambda: _blur(lat)),
+        ):
+            times[name] = cuda_ms(fn)
+        print(f"bilateral kernels {shape} C={C} lattice {ext}: splat max_abs_err {splat_err} "
+              f"kernel {times['bls_splat']} ms plain {times['bls_splat_plain']} ms; slice exact "
+              f"kernel {times['bls_slice']} ms plain {times['bls_slice_plain']} ms; blur "
+              f"max_abs_err {blur_err} kernel {times['bls_blur']} ms plain "
+              f"{times['bls_blur_plain']} ms")
+        out = out or {
+            "bls_splat": (splat_err, times["bls_splat"], times["bls_splat_plain"]),
+            "bls_slice": (0.0, times["bls_slice"], times["bls_slice_plain"]),
+            "bls_blur": (blur_err, times["bls_blur"], times["bls_blur_plain"]),
+        }
+    # a 2-D solve: the kernels take it as one z-plane (blur dim 5)
+    img = torch.randint(0, 256, (96, 80), generator=gen).float().cuda()
+    t2, c2 = (torch.rand((96, 80), generator=gen).cuda() for _ in range(2))
+    kw = dict(sigma_spatial=3, sigma_luma=8, blur_dim=5)
+    err = check_close("2-D solve", bilateral_solve_gray(t2, img, c2, **kw),
+                      bilateral_solve_gray(t2, img, c2, pixel_impl="scatter", **kw), 1e-4, 1e-5)
+    print(f"2-D bilateral solve (96, 80) kernels vs plain: max_abs_err {err}")
+    return out
+
+
+def check_u8_maps(name, got, want):
+    """uint8 maps agree up to 1 (255 and 0 are neighbours across the
+    reference's wraparound at 256) on at most 1e-3 of the voxels: a fp32
+    difference moves a value across a quantization boundary, and the
+    solve's output is constant over each lattice vertex."""
+    d = (got.int() - want.int()) % 256
+    d = torch.minimum(d, 256 - d)
+    n_diff = d.count_nonzero().item()
+    if d.max().item() > 1 or n_diff > 1e-3 * d.numel():
+        raise AssertionError(f"{name}: {n_diff} of {d.numel()} voxels differ, max {d.max().item()}")
+    return n_diff
+
+
 def phase_main_path(seed, workdir: Path):
     size = 128
     vol, labels = phantom(size, seed)
@@ -223,7 +311,87 @@ def phase_main_path(seed, workdir: Path):
     print(f"launches in the main path: attention {n_attn}, similarity {n_sim}")
     if n_attn == 0 or n_sim == 0:
         raise AssertionError(f"a kernel was not launched: attention {n_attn}, similarity {n_sim}")
-    return n_attn, n_sim
+    return n_attn, n_sim, vol, labels, feat_t
+
+
+def bls_requests(vol, feat_t, anns, impl="auto"):
+    """Refined interactive requests; returns each one's maps, label volume
+    and wall seconds."""
+    out = []
+    for ann in anns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sims = compute_similarities(vol, feat_t, ann, bilateral_solver=True, bls_shape_bucket=8,
+                                    impl=impl)
+        pred = fuse_predictions(sims)
+        torch.cuda.synchronize()
+        out.append((sims, pred, time.perf_counter() - t0))
+    return out
+
+
+def phase_refinement(seed, workdir: Path, vol, labels, feat_t):
+    """The refinement path: the CLI with per-class tight crops and the
+    island filter, then refined requests with bucketed batched crops."""
+    for fn in BLS_KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    predict_ntf.main(["--data", str(workdir), "--num-samples", "256", "--seed", str(seed),
+                      "--bilateral-solver", "--largest-island"])
+    t_cli = time.perf_counter() - t0
+    n_cli = [fn.launches for fn in BLS_KERNELS]
+    pred = np.load(workdir / "ntf_pred256.0bothblsisl.npy")
+    if pred.shape != (64, 64, 64) or pred.dtype != np.uint8 or pred.max() > 5 or not pred.any():
+        raise AssertionError(f"refined prediction {pred.shape} {pred.dtype} max {pred.max()}")
+    metrics = json.loads((workdir / "ntf_metrics256.0bothblsisl.json").read_text())
+    if not 0.0 <= metrics["mIoU"] <= 1.0:
+        raise AssertionError(f"refined mIoU {metrics['mIoU']}")
+
+    labels_f = np.flip(labels, axis=-3).copy()
+    anns = [annotations_from_labels(labels_f, 256, "both", rng=np.random.default_rng(seed + r),
+                                    device="cuda") for r in range(1, 4)]
+    reqs = bls_requests(vol, feat_t, anns)
+    n_all = [fn.launches for fn in BLS_KERNELS]
+    n_req = [a - b for a, b in zip(n_all, n_cli)]
+    sims, pred_r, _ = reqs[-1]
+    plain = compute_similarities(vol, feat_t, anns[-1], bilateral_solver=True,
+                                 bls_shape_bucket=8, impl="plain")
+    n_diff = sum(check_u8_maps(f"refined request map {k}", sims[k], plain[k]) for k in sims)
+    if tuple(pred_r.shape) != (64, 64, 64):
+        raise AssertionError(f"refined request prediction shape {tuple(pred_r.shape)}")
+    req_ms = [r[2] * 1e3 for r in reqs]
+    print(f"refinement path: predict CLI --bilateral-solver --largest-island {t_cli} s, "
+          f"mIoU {metrics['mIoU']}; refined request p50 {float(np.median(req_ms))} ms "
+          f"(each {req_ms} ms); last request vs plain: {n_diff} voxels differ by 1")
+    print(f"launches (splat, slice, blur): CLI {n_cli}, requests {n_req}")
+    if min(n_cli) == 0 or min(n_req) == 0:
+        raise AssertionError(f"a bilateral kernel was not launched: CLI {n_cli}, requests {n_req}")
+    return n_all
+
+
+def phase_whole_grid(seed):
+    """refine_similarities_batched on a 256³ sim grid (the half-res grid of a
+    512³ CT), five classes, support over the whole grid: kernels vs plain,
+    in turns plain, kernels, kernels, plain."""
+    size, C = 256, BLS_C
+    vol, labels = phantom(size, seed + 11)
+    shape = (size,) * 3
+    ref = make_bls_reference(vol, shape, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lab = torch.from_numpy(labels).cuda()
+    cls = torch.arange(1, C + 1, device="cuda").reshape(C, 1, 1, 1)
+    sims = 0.15 + 0.6 * (lab[None] == cls).float()
+    sims += 0.1 * torch.rand((C,) + shape, generator=gen, device="cuda")
+    runs = {"scatter": [], "auto": []}
+    outs = {}
+    for impl in ("scatter", "auto", "auto", "scatter"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[impl] = refine_similarities_batched(sims, None, shape, ref_u8=ref, pixel_impl=impl)
+        torch.cuda.synchronize()
+        runs[impl].append(time.perf_counter() - t0)
+    n_diff = check_u8_maps("whole-grid refinement", outs["auto"], outs["scatter"])
+    print(f"whole-grid refinement {shape} C={C}: kernels {runs['auto']} s, plain "
+          f"{runs['scatter']} s; {n_diff} of {outs['auto'].numel()} voxels differ by 1")
 
 
 def phase_fast(seed, workdir: Path):
@@ -283,9 +451,9 @@ def device_breakdown(prof, wall_s: float, label: str, top: int = 6):
 
 
 def phase_profile(seed):
-    """torch.profiler traces of the two library calls users wait on: a warm
-    128³ full-sweep extraction, and three interactive requests against the
-    features resident on the card."""
+    """torch.profiler traces of the library calls users wait on: a warm 128³
+    full-sweep extraction, three interactive requests against the features
+    resident on the card, and three refined requests."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = resolve_model("vits8")
@@ -315,6 +483,13 @@ def phase_profile(seed):
         wall = time.perf_counter() - t0
     device_breakdown(prof, wall, "3 interactive requests, 64^3 features")
 
+    bls_requests(vol, feats, anns[:1])  # warm-up
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        bls_requests(vol, feats, anns)
+        wall = time.perf_counter() - t0
+    device_breakdown(prof, wall, "3 refined requests (bilateral_solver, bucket 8), 64^3 features")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -338,8 +513,12 @@ def main() -> int:
     gen = torch.Generator().manual_seed(args.seed)
     attn_err, attn_ms, attn_plain = phase_attention(gen)
     sim_err, sim_ms, sim_plain = phase_similarity(gen)
+    bls = phase_bilateral(gen)
     with tempfile.TemporaryDirectory(prefix="vittf_smoke_") as tmp:
-        n_attn, n_sim = phase_main_path(args.seed, Path(tmp))
+        n_attn, n_sim, vol, labels, feat_t = phase_main_path(args.seed, Path(tmp))
+        n_bls = phase_refinement(args.seed, Path(tmp), vol, labels, feat_t)
+        del feat_t
+        phase_whole_grid(args.seed)
         phase_fast(args.seed, Path(tmp))
     phase_consistency(args.seed)
     if args.profile:
@@ -355,6 +534,11 @@ def main() -> int:
          "source": "vittf_tpu_torch/csrc/similarity.cu",
          "replaces": "vittf_tpu/ops/similarity.py:109", "launches": n_sim,
          "max_abs_err": sim_err, "ms": sim_ms, "plain_ms": sim_plain},
+    ] + [
+        {"name": name, "route": "cuda", "source": "vittf_tpu_torch/csrc/bilateral.cu",
+         "replaces": f"vittf_tpu/ops/bilateral.py:{line}", "launches": n,
+         "max_abs_err": bls[name][0], "ms": bls[name][1], "plain_ms": bls[name][2]}
+        for name, line, n in zip(("bls_splat", "bls_slice", "bls_blur"), (333, 412, 495), n_bls)
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

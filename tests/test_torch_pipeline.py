@@ -1,4 +1,4 @@
-"""Port parity: the no-refinement similarity/prediction slice and both CLIs.
+"""Port parity: the similarity/prediction slice and both CLIs.
 
 ``vittf_tpu_torch.pipeline`` (ntf, annotations, evaluate) and
 ``vittf_tpu_torch.cli`` (infer, predict_ntf) against their ``vittf_tpu``
@@ -51,9 +51,13 @@ def test_compute_similarities_matches_jax(rng):
     # mean moves a value across an integer quantization boundary
     d = np.abs(got["solo"].numpy().astype(int) - np.asarray(want["solo"]).astype(int))
     assert d.max() <= 1 and np.count_nonzero(d) <= 1
-    with pytest.raises(NotImplementedError, match="refinement"):
-        tn.compute_similarities(volume.shape, torch.from_numpy(features), ann,
-                                bilateral_solver=True)
+    # with refinement (per-class crops; tests/test_torch_refine.py has both modes)
+    want = jn.compute_similarities(jnp.asarray(volume), jnp.asarray(features), ann,
+                                   impl="xla", bilateral_solver=True)
+    got = tn.compute_similarities(volume, torch.from_numpy(features), ann,
+                                  bilateral_solver=True)
+    for name in ann:
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]))
 
 
 def test_quantize_uint8_wraps_mod_256():
@@ -118,7 +122,8 @@ def test_segmentation_metrics_match_jax(rng):
 def cli_dirs(tmp_path_factory):
     """The same 16³ labeled volume through the JAX CLIs and the port CLIs:
     vits8 (random weights from PRNGKey(0) in both), fos 4 (17 tokens per
-    slice), fp32 parity mode, 32 sampled annotations per class."""
+    slice), fp32 parity mode, 32 sampled annotations per class; predict_ntf
+    runs without and with ``--bilateral-solver --largest-island``."""
     from vittf_tpu.cli import infer as j_infer
     from vittf_tpu.cli import predict_ntf as j_predict
     from vittf_tpu.cli import synth as j_synth
@@ -141,6 +146,8 @@ def cli_dirs(tmp_path_factory):
                       "--precision", "highest"]
         assert infer.main(infer_args + (["--cpu"] if name == "torch" else [])) == 0
         assert predict.main(["--data", str(d), "--num-samples", "32"] + extra) == 0
+        assert predict.main(["--data", str(d), "--num-samples", "32", "--bilateral-solver",
+                             "--largest-island"] + extra) == 0
         dirs[name] = d
     return dirs
 
@@ -156,24 +163,29 @@ def test_infer_cli_artifact_matches_jax(cli_dirs):
                                rtol=1e-3, atol=1e-5)
 
 
-def test_predict_cli_artifacts_match_jax(cli_dirs):
-    want = np.load(cli_dirs["jax"] / "ntf_pred32.0both.npy")
-    got = np.load(cli_dirs["torch"] / "ntf_pred32.0both.npy")
+def _assert_predict_artifacts_match(cli_dirs, suffix):
+    want = np.load(cli_dirs["jax"] / f"ntf_pred{suffix}.npy")
+    got = np.load(cli_dirs["torch"] / f"ntf_pred{suffix}.npy")
     assert got.dtype == np.uint8 and got.shape == (8, 8, 8)
     np.testing.assert_array_equal(got, want)
-    wm = json.loads((cli_dirs["jax"] / "ntf_metrics32.0both.json").read_text())
-    gm = json.loads((cli_dirs["torch"] / "ntf_metrics32.0both.json").read_text())
+    wm = json.loads((cli_dirs["jax"] / f"ntf_metrics{suffix}.json").read_text())
+    gm = json.loads((cli_dirs["torch"] / f"ntf_metrics{suffix}.json").read_text())
     for key in ("fit_time", "predict_time"):
         wm.pop(key), gm.pop(key)
     assert gm == wm
 
 
-def test_predict_cli_refuses_unported_flags(tmp_path):
-    from vittf_tpu_torch.cli import predict_ntf
+def test_predict_cli_artifacts_match_jax(cli_dirs):
+    _assert_predict_artifacts_match(cli_dirs, "32.0both")
 
-    for flag in ("--bilateral-solver", "--largest-island"):
-        with pytest.raises(NotImplementedError):
-            predict_ntf.main(["--data", str(tmp_path), "--cpu", flag])
+
+def test_predict_cli_bls_island_artifacts_match_jax(cli_dirs):
+    """``--bilateral-solver --largest-island``: per-class tight-crop
+    refinement, then the native largest-island filter, as the JAX CLI."""
+    _assert_predict_artifacts_match(cli_dirs, "32.0bothblsisl")
+    plain = np.load(cli_dirs["torch"] / "ntf_pred32.0both.npy")
+    refined = np.load(cli_dirs["torch"] / "ntf_pred32.0bothblsisl.npy")
+    assert refined.any() and (refined != plain).any()
 
 
 def test_quantize_features_u8_tensor_branch_matches_numpy(rng):

@@ -2,9 +2,9 @@
 
 Same module layout and public names as ``vittf_tpu`` (the JAX reference,
 which stays beside it). Plain tensor code is PyTorch; the Pallas TPU kernels
-on the extraction/similarity path are hand-written CUDA kernels in
-``csrc/``, built at first use by ``vittf_tpu_torch.kernels``. This package
-never imports JAX.
+on the extraction, similarity and refinement paths are hand-written CUDA
+kernels in ``csrc/``, built at first use by ``vittf_tpu_torch.kernels``. This
+package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,16 @@
 """NTF predictor CLI — the reference ``predict_ntf.py`` command surface.
 
-    python -m vittf_tpu_torch.cli.predict_ntf --data DIR [--num-samples N]
-        [--sampling-mode both]
+    python -m vittf_tpu_torch.cli.predict_ntf --data DIR [--bilateral-solver]
+        [--largest-island] [--num-samples N] [--sampling-mode both] [--cpu]
 
 Port of ``vittf_tpu/cli/predict_ntf.py`` with the same flags and artifacts:
 volume + labels z-flips, largest-features selection, synthetic annotation
 sampling from GT, per-class similarity (split per class when ΣA > 10000),
+optional bilateral refinement with per-class tight crops
+(``--bilateral-solver``) and largest-island filter (``--largest-island``),
 per-class threshold + max-sim fusion, ``ntf_pred{...}.npy`` +
-``ntf_metrics{...}.json``. It runs on the first CUDA device (``--cpu`` for
-the CPU). ``--bilateral-solver`` and ``--largest-island`` raise
-``NotImplementedError`` until the refinement slice is ported.
+``ntf_metrics{...}.json`` (the suffix gains ``bls`` and ``isl`` with those
+flags). It runs on the first CUDA device (``--cpu`` for the CPU).
 """
 from __future__ import annotations
 
@@ -32,22 +33,19 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--sampling-mode", type=str,
                    choices=["uniform", "surface", "both"], default="both")
     p.add_argument("--impl", type=str, default="auto", choices=["auto", "plain"],
-                   help="'auto': the CUDA similarity kernel on the GPU")
+                   help="'auto': the CUDA kernels on the GPU; 'plain': their plain twins")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--largest-island", action="store_true",
-                   help="largest connected similarity island filter (not ported)")
-    p.add_argument("--island-threshold", type=int, default=69)
+                   help="keep only each class's largest connected similarity island "
+                        "before fusion (reference cc_torch post-filter)")
+    p.add_argument("--island-threshold", type=int, default=69,
+                   help="uint8 threshold defining islands (default 69)")
     p.add_argument("--cpu", action="store_true", help="Run on the CPU")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag in ("bilateral_solver", "largest_island"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: the refinement slice is not ported yet"
-            )
     from vittf_tpu_torch.cli.infer import select_device
     from vittf_tpu_torch.core.io import ArtifactDir, load_features
     from vittf_tpu_torch.pipeline.annotations import annotations_from_labels
@@ -64,7 +62,9 @@ def main(argv=None) -> int:
     ad = ArtifactDir(d)
     if args.num_samples == 0.0:
         args.sampling_mode = "annotated"
-    suffix = f"{args.num_samples}{args.sampling_mode}"
+    bls_str = "bls" if args.bilateral_solver else ""
+    isl_str = "isl" if args.largest_island else ""
+    suffix = f"{args.num_samples}{args.sampling_mode}{bls_str}{isl_str}"
     out_pred = d / f"ntf_pred{suffix}.npy"
     if out_pred.exists():
         print(f"Already inferred NTF preds for {d} ({suffix})")
@@ -100,17 +100,27 @@ def main(argv=None) -> int:
         if total > 10000:
             # per-class computation (predict_ntf.py:185-188)
             similarities = {
-                k: compute_similarities(volume.shape, feat_t, {k: v}, impl=args.impl)[k]
+                k: compute_similarities(volume, feat_t, {k: v},
+                                        bilateral_solver=args.bilateral_solver,
+                                        impl=args.impl)[k]
                 for k, v in annotations.items()
             }
         else:
             similarities = compute_similarities(
-                volume.shape, feat_t, annotations, impl=args.impl
+                volume, feat_t, annotations, bilateral_solver=args.bilateral_solver,
+                impl=args.impl,
             )
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t2 = time.time()
 
+    if args.largest_island:
+        from vittf_tpu_torch.ops.connected import filter_similarity_largest_island
+
+        similarities = {
+            k: filter_similarity_largest_island(v, args.island_threshold)
+            for k, v in similarities.items()
+        }
     pred = fuse_predictions(similarities, CT_ORG_THRESHOLDS)
     np.save(out_pred, pred.cpu().numpy().astype(np.uint8))
     pred_full = upscale_prediction(pred, volume.shape)

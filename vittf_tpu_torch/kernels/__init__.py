@@ -1,11 +1,14 @@
 """Build and load the package's hand-written CUDA kernels.
 
-The sources in ``vittf_tpu_torch/csrc/*.cu`` are compiled at first use with
+The sources in ``vittf_tpu_torch/csrc/*.cu`` are compiled at first use, one
+``nvcc`` process per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o vittf_tpu_torch/_build/libvittf_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o _build/<name>.o
 
-into one shared library with a plain C interface, loaded with ``ctypes``.
+and linked (``nvcc -shared``) into one shared library
+``vittf_tpu_torch/_build/libvittf_kernels_<hash>.so`` with a plain C
+interface, loaded with ``ctypes``.
 The file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads from the cache. Pointers and the CUDA
 stream pass as ``c_void_p``; every entry point returns the
@@ -21,6 +24,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -28,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _lib: ctypes.CDLL | None = None
@@ -71,6 +75,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, i32, i32, i32, i32, f32, f32, i32, vp,
     ]
     lib.vittf_similarity.restype = i32
+    lib.vittf_bls_splat.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, f32, i32, vp]
+    lib.vittf_bls_splat.restype = i32
+    lib.vittf_bls_slice.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, f32, i32, vp]
+    lib.vittf_bls_slice.restype = i32
+    lib.vittf_bls_blur.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.vittf_bls_blur.restype = i32
 
 
 def load_library() -> ctypes.CDLL:
@@ -82,21 +92,32 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, so)
+        tag = BUILD_DIR / f"{so.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        srcs = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [f"{tag}.{s.stem}.o" for s in srcs]
+        try:
+            with ThreadPoolExecutor(len(srcs)) as pool:
+                list(pool.map(_run_nvcc, ([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                                          for s, o in zip(srcs, objs))))
+            _run_nvcc([nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tag}.tmp.so", *objs])
+        finally:
+            for obj in objs:
+                Path(obj).unlink(missing_ok=True)
+        os.replace(f"{tag}.tmp.so", so)
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     _lib = lib
     build_seconds = time.perf_counter() - t0
     return lib
+
+
+def _run_nvcc(cmd: list[str]) -> None:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
+        )
 
 
 def check(code: int, name: str) -> None:

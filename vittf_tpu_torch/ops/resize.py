@@ -19,6 +19,26 @@ def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(idx, in_size - 1)
 
 
+def _linear_weight_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) matrix for 1D linear resample, align_corners=False.
+
+    torch rule: src = (i + 0.5) * in/out - 0.5, clamped at 0 below;
+    neighbors floor(src)/floor(src)+1 clamped into range.
+    """
+    scale = in_size / out_size
+    src = (np.arange(out_size) + 0.5) * scale - 0.5
+    src = np.maximum(src, 0.0)
+    i0 = np.floor(src).astype(np.int64)
+    i0 = np.minimum(i0, in_size - 1)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    w1 = src - np.floor(src)
+    w1 = np.where(i1 == i0, 0.0, w1)
+    w = np.zeros((out_size, in_size))
+    np.add.at(w, (np.arange(out_size), i0), 1.0 - w1)
+    np.add.at(w, (np.arange(out_size), i1), w1)
+    return w
+
+
 def _cubic_kernel(t: np.ndarray, A: float = -0.75) -> np.ndarray:
     """Cubic convolution kernel; torch uses A=-0.75 (not Keys' -0.5)."""
     t = np.abs(t)
@@ -93,6 +113,17 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, ...]) -> torch.Tensor:
         else:
             idx = torch.from_numpy(_nearest_indices(in_size, out_size))
             x = torch.index_select(x, axis, idx.to(x.device))
+    return x
+
+
+def resize_linear(x: torch.Tensor, size: tuple[int, ...]) -> torch.Tensor:
+    """(Bi/tri)linear resize of the trailing axes, align_corners=False, torch
+    parity. Integer tensors are resized in fp32 and cast back, as the JAX
+    twin does."""
+    for axis, out_size in zip(_spatial_axes(x.ndim, len(size)), size):
+        in_size = x.shape[axis]
+        if in_size != out_size:
+            x = _apply_axis_matrix(x, _linear_weight_matrix(in_size, out_size), axis)
     return x
 
 
