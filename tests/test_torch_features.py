@@ -6,6 +6,8 @@ runs z, y, x in turn where the JAX package fuses cubic sweeps into one jit;
 the sums are the same up to fp32 reassociation, held to rtol 1e-5 (the
 golden-file tolerance of tests/test_golden.py).
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,7 +104,43 @@ def test_helpers_match_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_fused_block_impl_not_ported(params):
-    cfg = tf.ExtractConfig(feature_output_size=4, block_impl="fused")
-    with pytest.raises(NotImplementedError, match="fused"):
+def _fused_both(params, monkeypatch, block_impl):
+    """bf16 extraction through the fused block on both sides; the JAX block
+    runs in interpret mode (its TPU kernel does not lower on the CPU)."""
+    from vittf_tpu.ops import fused_block as jfb
+
+    monkeypatch.setattr(jfb, "fused_block", functools.partial(jfb.fused_block, interpret=True))
+    vol = np.random.default_rng(3).random((16, 16, 16)).astype(np.float32)
+    kw = dict(feature_output_size=4, batch_size=4, compute_dtype="bfloat16", block_impl=block_impl)
+    want = jf.extract_features(jnp.asarray(vol), params, TINY,
+                               jf.ExtractConfig(attn_impl="xla", **kw))["k"]
+    got = tf.extract_features(vol, params_from_jax(as_numpy_tree(params)), port_cfg(TINY),
+                              tf.ExtractConfig(**kw))["k"]
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    # the bf16 block-stack contract (tests_tpu/test_kernels_tpu.py)
+    assert np.abs(got.numpy() - want).max() <= 0.02 * np.abs(want).max()
+    return got
+
+
+def test_fused_block_impl_not_ported(params, monkeypatch):
+    """block_impl='fused', the path the port refused before the fused block
+    was ported, matches the JAX package's extraction."""
+    got = _fused_both(params, monkeypatch, "fused")
+    xla = tf.extract_features(
+        np.random.default_rng(3).random((16, 16, 16)).astype(np.float32),
+        params_from_jax(as_numpy_tree(params)), port_cfg(TINY),
+        tf.ExtractConfig(feature_output_size=4, batch_size=4, compute_dtype="bfloat16"),
+    )["k"]
+    assert not torch.equal(got, xla)  # the blocks really ran fused
+
+
+@pytest.mark.parametrize("block_impl", ["fused_max", "fused_rows"])
+def test_fused_block_impls_match_jax(params, monkeypatch, block_impl):
+    _fused_both(params, monkeypatch, block_impl)
+
+
+def test_unknown_block_impl_raises(params):
+    cfg = tf.ExtractConfig(feature_output_size=4, block_impl="fused_nomax")
+    with pytest.raises(ValueError, match="block_impl"):
         tf.extract_features(np.zeros((8, 8, 8), np.float32), {}, port_cfg(TINY), cfg)

@@ -51,18 +51,34 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 def test_infer_requires_cuda_without_cpu_flag(tmp_path, monkeypatch):
+    """No CUDA device: the port's CLI raises unless ``--cpu`` is given; with
+    it, ``--streamed`` writes the JAX CLI's ``--streamed`` artifact (uint16
+    volume, streamed compact; vits8, fos 4, parity mode) and
+    ``--data-parallel`` is refused."""
     import numpy as np
     import torch
 
+    from vittf_tpu.cli import infer as jax_infer
     from vittf_tpu_torch.cli import infer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     np.save(tmp_path / "v.npy", np.zeros((8, 8, 8), np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         infer.main(["--data-path", str(tmp_path / "v.npy")])
-    for flag in ("--streamed", "--data-parallel"):
-        with pytest.raises(NotImplementedError):
-            infer.main(["--data-path", str(tmp_path / "v.npy"), "--cpu", flag])
+    vol = np.random.default_rng(0).integers(0, 4000, (16, 16, 16), dtype=np.uint16)
+    np.save(tmp_path / "u.npy", vol)
+    args = ["--data-path", str(tmp_path / "u.npy"), "--feature-output-size", "4",
+            "--precision", "highest", "--streamed", "--chunk-batches", "2"]
+    assert jax_infer.main(args + ["--cache-path", str(tmp_path / "jax.npy")]) == 0
+    assert infer.main(args + ["--cpu", "--cache-path", str(tmp_path / "port.npy")]) == 0
+    want = np.load(tmp_path / "jax.npy", allow_pickle=True)[()]["k"]
+    got = np.load(tmp_path / "port.npy", allow_pickle=True)[()]["k"]
+    assert got.dtype == np.float16 and got.shape == want.shape == (384, 4, 4, 4)
+    # fp16 artifacts: fp32 sums that differ in the last bits may round apart
+    np.testing.assert_allclose(got.astype(np.float32), want.astype(np.float32),
+                               rtol=1e-3, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="data-parallel"):
+        infer.main(["--data-path", str(tmp_path / "v.npy"), "--cpu", "--data-parallel"])
 
 
 def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):

@@ -7,8 +7,10 @@ first CUDA device and raises when none is visible, unless ``--cpu`` is
 given. ``--weights`` takes a DINO ``.pth`` or the JAX package's flat
 ``.npz``; with no weights, random weights are drawn exactly as the JAX CLI
 draws them (``PRNGKey(0)``), so both CLIs extract the same features.
-``--streamed``, ``--data-parallel`` and ``--block-impl fused*`` are not
-ported yet and raise ``NotImplementedError``.
+``--block-impl fused`` runs every non-final ViT block through the fused
+block kernel (bf16); ``--streamed`` keeps the volume in host memory and
+sends it to the device in chunks. ``--data-parallel`` is not ported yet and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,14 +61,21 @@ def build_parser() -> ArgumentParser:
                    choices=["bfloat16", "float32"])
     p.add_argument("--block-impl", type=str, default="xla",
                    choices=["xla", "fused", "fused_rows"],
-                   help="only 'xla' (per-op blocks) is ported")
+                   help="'fused' = the fused transformer-block kernel for every "
+                        "non-final block (bf16 only; fp32 keeps the per-op "
+                        "blocks; no softmax row max); 'fused_rows' = the same "
+                        "kernel with the row max, named after the TPU's "
+                        "row-grid variant (ExtractConfig's 'fused_max')")
     p.add_argument("--fast", action="store_true",
                    help="Slice-subsample fast mode: run the ViT only on "
                         "the slices nearest the pooled output grid; NOT "
                         "artifact-parity with the full sweep")
     p.add_argument("--streamed", action="store_true",
-                   help="host-streamed extraction (not ported)")
-    p.add_argument("--chunk-batches", type=int, default=8)
+                   help="Host-streamed extraction: the volume stays in host "
+                        "memory and slice chunks go to the device one at a "
+                        "time (implies --preserve-dtype)")
+    p.add_argument("--chunk-batches", type=int, default=8,
+                   help="slice batches per device-resident chunk for --streamed")
     p.add_argument("--preserve-dtype", action="store_true",
                    help="Keep compact volume dtypes (uint8, int16, fp16) on "
                         "the device instead of casting to fp32 (bit-identical "
@@ -109,9 +118,8 @@ def load_params(args, cfg) -> dict[str, torch.Tensor]:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag in ("streamed", "data_parallel"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet")
+    if args.data_parallel:
+        raise NotImplementedError("--data-parallel is not ported yet")
     device = select_device(args.cpu)
 
     from vittf_tpu_torch.core.io import load_volume, save_features
@@ -120,7 +128,9 @@ def main(argv=None) -> int:
 
     cfg = resolve_model(args.dino_model, args.dino2_model)
     cache_path = handle_output_path(args, cfg.name)
-    vol = load_volume(args.data_path, preserve_dtype=args.preserve_dtype)
+    # streaming is for volumes past device comfort: keep them compact on the
+    # host too (bit-identical features)
+    vol = load_volume(args.data_path, preserve_dtype=args.preserve_dtype or args.streamed)
     print(f"Loaded volume: {vol.shape} {vol.dtype}")
 
     params = load_params(args, cfg)
@@ -137,7 +147,14 @@ def main(argv=None) -> int:
         slice_subsample=args.fast,
     )
     t0 = time.time()
-    qkv = extract_features(vol, params, cfg, ex_cfg, device=device)
+    if args.streamed:
+        from vittf_tpu_torch.pipeline.streamed import extract_features_streamed
+
+        qkv = extract_features_streamed(
+            vol, params, cfg, ex_cfg, chunk_batches=args.chunk_batches, device=device
+        )
+    else:
+        qkv = extract_features(vol, params, cfg, ex_cfg, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print(

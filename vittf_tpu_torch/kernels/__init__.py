@@ -81,6 +81,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vittf_bls_slice.restype = i32
     lib.vittf_bls_blur.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.vittf_bls_blur.restype = i32
+    lib.vittf_fused_block.argtypes = [vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
+    lib.vittf_fused_block.restype = i32
 
 
 def load_library() -> ctypes.CDLL:

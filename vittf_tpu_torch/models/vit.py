@@ -11,9 +11,11 @@ Numerics follow the JAX forward:
 - parity mode (module in fp32, ``precision='highest'``): fp32 throughout,
   exact erf GELU.
 The compute dtype is the module's parameter dtype (``model.to(dtype)``).
-Attention goes through ``vittf_tpu_torch.ops.attention`` (the CUDA kernel
-on CUDA tensors); the linears and the token-GEMM patch embed are plain
-``torch`` matmuls.
+Per-op blocks (``block_impl='xla'``) run attention through
+``vittf_tpu_torch.ops.attention`` (the CUDA kernel on CUDA tensors) and the
+linears as plain ``torch`` matmuls; ``block_impl='fused*'`` runs each
+non-final bf16 block through ``vittf_tpu_torch.ops.fused_block`` (K3). The
+token-GEMM patch embed is a plain ``torch`` matmul.
 """
 from __future__ import annotations
 
@@ -25,7 +27,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vittf_tpu_torch.ops.attention import multi_head_attention
+from vittf_tpu_torch.ops.fused_block import fused_block
 from vittf_tpu_torch.ops.resize import resize_cubic_scaled
+
+
+_BLOCK_IMPLS = ("xla", "fused", "fused_rows", "fused_nomax", "fused_rows_nomax")
 
 
 @dataclass(frozen=True)
@@ -247,6 +253,7 @@ class VisionTransformer(nn.Module):
         capture: str = "qkv",
         stop_after_capture: bool = False,
         capture_thirds: tuple | None = None,
+        block_impl: str = "xla",
     ):
         """Run the ViT over (B, C, H, W) images (H, W multiples of the patch).
 
@@ -255,8 +262,17 @@ class VisionTransformer(nn.Module):
         block's capture, (B, 1+hw, 3D) for 'qkv', or
         (B, 1+hw, len(capture_thirds)·D) when ``capture_thirds`` narrows
         the projection to those column blocks (q=0, k=1, v=2).
+
+        ``block_impl``: 'xla' (per-op blocks) or 'fused[_rows][_nomax]': the
+        fused block for every block whose output is not captured, when the
+        module is bf16 ('_rows' picks the TPU's row-grid body, the same
+        values; '_nomax' skips the softmax row max). An fp32 module keeps the
+        per-op blocks, as the JAX package does.
         """
+        if block_impl not in _BLOCK_IMPLS:
+            raise ValueError(f"unknown block_impl: {block_impl!r}")
         x = self._embed(images)
+        use_fused = block_impl != "xla" and x.dtype == torch.bfloat16
         qkv_last = None
         depth = len(self.blocks)
         for i, blk in enumerate(self.blocks):
@@ -272,6 +288,13 @@ class VisionTransformer(nn.Module):
                     weight = torch.cat([weight[t * D:(t + 1) * D] for t in capture_thirds])
                     bias = torch.cat([bias[t * D:(t + 1) * D] for t in capture_thirds])
                 return None, F.linear(y, weight, bias)
+            if use_fused and want is None:
+                x = fused_block(
+                    x, blk, self.cfg.num_heads,
+                    impl="rows" if "_rows" in block_impl else "loop",
+                    softmax_max="_nomax" not in block_impl,
+                )
+                continue
             x, cap = blk(x, precision, attn_impl, capture=want)
             if cap is not None:
                 qkv_last = cap

@@ -9,7 +9,10 @@ the numbers are the same). Per slice batch: nearest resize of the raw
 slices, global min-max normalization, the ViT with the grayscale replicate
 and ImageNet normalization folded into the patch embed, the last block's k
 projection, CLS drop, and the slice-axis adaptive pool as a weighted
-accumulation. The three axes are summed as (z + y) + x.
+accumulation. The three axes are summed as (z + y) + x. The batch loop
+(``_accumulate``) takes its batches from a source and carries its fp32
+accumulators in and out, so the host-streamed path (``pipeline/streamed.py``)
+feeds it chunk by chunk.
 """
 from __future__ import annotations
 
@@ -58,7 +61,10 @@ class ExtractConfig:
     # grid (the reference's sketched shortcut, infer.py:160-166); NOT
     # artifact-parity with the full sweep.
     slice_subsample: bool = False
-    # only 'xla' (per-op blocks) is ported; the fused block kernel is later work
+    # 'xla' (per-op blocks) | 'fused' | 'fused_max' | 'fused_rows': the fused
+    # block kernel (bf16 only; 'fused' skips the softmax row max). In this
+    # package 'fused_rows' equals 'fused_max': the TPU's row-grid body
+    # computes the same values, so both run the same kernel with the row max.
     block_impl: str = "xla"
 
 
@@ -102,7 +108,9 @@ def fold_grayscale_patch_embed(state_dict: dict) -> dict:
     return out
 
 
-def _slice_batch_features(model, batch, img_hw, f_hw, key_idx, precision, attn_impl, mima):
+def _slice_batch_features(
+    model, batch, img_hw, f_hw, key_idx, precision, attn_impl, block_impl, mima
+):
     """One (B, C, a, b) raw slice batch through the ViT → per-key
     (B, fh·fw, D) fp32 features from the last block's qkv projection (the
     DINO hook target, infer.py).
@@ -122,10 +130,16 @@ def _slice_batch_features(model, batch, img_hw, f_hw, key_idx, precision, attn_i
         if imgs.shape[1] == 1:
             imgs = imgs.expand(-1, 3, -1, -1)  # replicate 1→3 (infer.py:154)
         imgs = imagenet_normalize(imgs).to(dtype)
+    # Min-max and ImageNet-normalized inputs and the LayerNorms bound every
+    # block's exp2-domain scores at O(10), far from the ~120 overflow that
+    # the softmax row max guards against: 'fused' skips it, as the JAX
+    # package does; 'fused_max' asks for it.
+    block_impl = {"fused": "fused_nomax", "fused_max": "fused"}.get(block_impl, block_impl)
     # only the requested thirds of the last block's projection
     _, qkv = model.forward_raw(
         imgs, precision=precision, attn_impl=attn_impl, return_qkv_last=True,
         capture="qkv", stop_after_capture=True, capture_thirds=tuple(key_idx),
+        block_impl=block_impl,
     )
     n, B = len(key_idx), batch.shape[0]
     feats = qkv[:, 1:].reshape(B, f_hw[0] * f_hw[1], n, qkv.shape[-1] // n)  # CLS dropped
@@ -166,73 +180,109 @@ def _predecimate_fast_input(vol, im_sz, feat_out_sz):
     return vol[..., ::r, ::r, ::r].contiguous()
 
 
-def _axis_slices(vol, cfg, axis, im_sz, feat_out_sz, slice_subsample, pool):
-    """(S, C, a, b) slice stack (a view where possible), the (o_ax, S) pool
-    matrix (None when it is the identity) and the axis geometry."""
+def _axis_geometry(cfg, axis, im_sz, feat_out_sz):
+    """(permute, image (h, w), token grid (fh, fw), pooled slots, output axis)."""
     perm, im_dims, out_axis = _AXIS_RULES[axis]
     img_hw = (im_sz[im_dims[0]], im_sz[im_dims[1]])
     f_hw = (img_hw[0] // cfg.patch_size, img_hw[1] // cfg.patch_size)
-    o_ax = feat_out_sz[out_axis - 1]
-    vol4 = vol[None] if vol.ndim == 3 else vol  # (C, W, H, D)
-    S = vol4.shape[perm[0] + 1]
+    return perm, img_hw, f_hw, feat_out_sz[out_axis - 1], out_axis
+
+
+def _axis_pool(S, o_ax, pool, slice_subsample, device):
+    """The slice-axis pool of one sweep over S slices: (pick, w_pool, o_ax).
+
+    ``pick``: the slice indices fast mode keeps (None: all); ``w_pool``: the
+    (o_ax, S) fp32 pool matrix on ``device``, None for the identity (slice i
+    is output slot i); ``o_ax``: the pooled slots.
+    """
     if not pool:
         # single-axis reference semantics (infer.py:326 pool_fn=_noop)
-        o_ax, pool_mat = S, None
-    elif slice_subsample and S > o_ax:
-        # one picked slice per output slot: pick before the permute
-        pick = torch.from_numpy(_subsample_slice_indices(S, o_ax)).to(vol4.device)
-        vol4 = torch.index_select(vol4, perm[0] + 1, pick)
-        S, pool_mat = o_ax, None
-    elif S == o_ax:
-        pool_mat = None  # adaptive-pool windows are singletons
-    else:
-        pool_mat = _adaptive_avg_weight_matrix(S, o_ax)
+        return None, None, S
+    if slice_subsample and S > o_ax:
+        return _subsample_slice_indices(S, o_ax), None, o_ax  # one slice per slot
+    if S == o_ax:
+        return None, None, o_ax  # adaptive-pool windows are singletons
+    w_pool = torch.as_tensor(_adaptive_avg_weight_matrix(S, o_ax), dtype=torch.float32,
+                             device=device)
+    return None, w_pool, o_ax
+
+
+def _axis_slices(vol, cfg, axis, im_sz, feat_out_sz, slice_subsample, pool):
+    """(S, C, a, b) slice stack (a view where possible), the (o_ax, S) pool
+    matrix (None when it is the identity) and the axis geometry."""
+    perm, img_hw, f_hw, o_ax, out_axis = _axis_geometry(cfg, axis, im_sz, feat_out_sz)
+    vol4 = vol[None] if vol.ndim == 3 else vol  # (C, W, H, D)
+    pick, w_pool, o_ax = _axis_pool(vol4.shape[perm[0] + 1], o_ax, pool, slice_subsample,
+                                    vol.device)
+    if pick is not None:  # pick before the permute
+        vol4 = torch.index_select(vol4, perm[0] + 1, torch.from_numpy(pick).to(vol4.device))
     slices = vol4.permute(perm[0] + 1, 0, perm[1] + 1, perm[2] + 1)
-    return slices, pool_mat, (img_hw, f_hw, o_ax, out_axis)
+    return slices, w_pool, (img_hw, f_hw, o_ax, out_axis)
 
 
-def _extract_axis(model, vol, mima, model_cfg, cfg, axis, im_sz, feat_out_sz):
-    """One axis sweep → {key: pooled (F, o0, o1, o2) fp32 volume}."""
-    slices, pool_mat, (img_hw, f_hw, o_ax, out_axis) = _axis_slices(
-        vol, model_cfg, axis, im_sz, feat_out_sz, cfg.slice_subsample,
-        # the slice axis is pooled only in the 'all' sweep (infer.py:329 vs :326)
-        cfg.slice_along == "all",
-    )
-    key_idx = tuple(_qkv_index(k) for k in cfg.return_keys)
-    D = model_cfg.embed_dim
-    S, B = slices.shape[0], cfg.batch_size
-    acc = [
-        torch.zeros((o_ax, f_hw[0] * f_hw[1], D), dtype=torch.float32, device=vol.device)
-        for _ in key_idx
+def _new_accumulators(n_keys, o_ax, f_hw, D, device):
+    return [
+        torch.zeros((o_ax, f_hw[0] * f_hw[1], D), dtype=torch.float32, device=device)
+        for _ in range(n_keys)
     ]
-    w_pool = None
-    if pool_mat is not None:
-        w_pool = torch.as_tensor(pool_mat, dtype=torch.float32, device=vol.device)
-    for s0 in range(0, S, B):
-        batch = slices[s0:s0 + B].contiguous()
+
+
+def _accumulate(model, batches, acc, w_pool, img_hw, f_hw, key_idx, cfg, mima):
+    """Run ``(s0, batch)`` pairs (batch = slices s0.. of the axis) through the
+    ViT into the carried fp32 accumulators, in place; returns them.
+
+    ``w_pool``: the (o_ax, S) slice-axis pool matrix on the accumulators'
+    device, or None for the identity (slice i is output slot i).
+    """
+    for s0, batch in batches:
         fks = _slice_batch_features(
-            model, batch, img_hw, f_hw, key_idx, cfg.precision, cfg.attn_impl, mima,
+            model, batch, img_hw, f_hw, key_idx, cfg.precision, cfg.attn_impl,
+            cfg.block_impl, mima,
         )
         for a, fk in zip(acc, fks):
+            nb = fk.shape[0]
             if w_pool is None:
-                # identity pool: slice i is output slot i
-                a[s0:s0 + fk.shape[0]] = fk
+                a[s0:s0 + nb] = fk
             else:
                 # acc += w[:, batch] · fk, in place (fp32 GEMM, no TF32)
-                nb = fk.shape[0]
-                a.view(o_ax, -1).addmm_(w_pool[:, s0:s0 + nb], fk.reshape(nb, -1))
+                a.view(a.shape[0], -1).addmm_(w_pool[:, s0:s0 + nb], fk.reshape(nb, -1))
+    return acc
+
+
+def _pooled_to_volume(acc, keys, f_hw, o_ax, out_axis, D):
+    """{key: (F, o0, o1, o2)} from the (o_ax, fh·fw, D) accumulators."""
     out = {}
-    for name, pooled in zip(cfg.return_keys, acc):
+    for name, pooled in zip(keys, acc):
         vol4 = pooled.reshape(o_ax, f_hw[0], f_hw[1], D)
         vol4 = torch.movedim(vol4, -1, 0)  # (F, o_ax, fh, fw)
         out[name] = torch.movedim(vol4, 1, out_axis)
     return out
 
 
+def _extract_axis(model, vol, mima, model_cfg, cfg, axis, im_sz, feat_out_sz):
+    """One axis sweep → {key: pooled (F, o0, o1, o2) fp32 volume}."""
+    slices, w_pool, (img_hw, f_hw, o_ax, out_axis) = _axis_slices(
+        vol, model_cfg, axis, im_sz, feat_out_sz, cfg.slice_subsample,
+        # the slice axis is pooled only in the 'all' sweep (infer.py:329 vs :326)
+        cfg.slice_along == "all",
+    )
+    key_idx = tuple(_qkv_index(k) for k in cfg.return_keys)
+    B = cfg.batch_size
+    batches = ((s0, slices[s0:s0 + B].contiguous()) for s0 in range(0, slices.shape[0], B))
+    acc = _new_accumulators(len(key_idx), o_ax, f_hw, model_cfg.embed_dim, vol.device)
+    acc = _accumulate(model, batches, acc, w_pool, img_hw, f_hw, key_idx, cfg, mima)
+    return _pooled_to_volume(acc, cfg.return_keys, f_hw, o_ax, out_axis, model_cfg.embed_dim)
+
+
 def _pool_to(feat: torch.Tensor, feat_out_sz: tuple[int, int, int]) -> torch.Tensor:
     if tuple(feat.shape[1:]) == tuple(feat_out_sz):
         return feat
     return adaptive_avg_pool(feat, feat_out_sz)
+
+
+def _check_block_impl(block_impl: str) -> None:
+    if block_impl not in ("xla", "fused", "fused_max", "fused_rows"):
+        raise ValueError(f"unknown block_impl: {block_impl!r}")
 
 
 def _build_model(
@@ -260,11 +310,7 @@ def extract_features(
     {key: (F, o0, o1, o2) fp32 tensor on ``device``}; for
     ``slice_along='all'`` the per-axis pooled volumes are summed.
     """
-    if cfg.block_impl != "xla":
-        raise NotImplementedError(
-            f"block_impl={cfg.block_impl!r}: the fused transformer-block kernel "
-            "(vittf_tpu/ops/fused_block.py) is not ported yet; use 'xla'"
-        )
+    _check_block_impl(cfg.block_impl)
     if not torch.is_tensor(vol):
         vol = torch.from_numpy(np.ascontiguousarray(vol))
     if vol.dtype not in _KEEP_DTYPES:
