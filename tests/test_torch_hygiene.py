@@ -27,6 +27,7 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "assert len(names) >= 20, names\n"
+        "assert {'vittf_tpu_torch.pipeline.session', 'vittf_tpu_torch.cli.serve'} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'vittf_tpu.')) or m == 'vittf_tpu')\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
@@ -79,6 +80,32 @@ def test_infer_requires_cuda_without_cpu_flag(tmp_path, monkeypatch):
                                rtol=1e-3, atol=1e-5)
     with pytest.raises(NotImplementedError, match="data-parallel"):
         infer.main(["--data-path", str(tmp_path / "v.npy"), "--cpu", "--data-parallel"])
+
+
+def test_serve_requires_cuda_without_cpu_flag(tmp_path, monkeypatch):
+    """No CUDA device and no ``--cpu``: ``serve`` raises before it serves
+    anything, and never runs on the CPU silently; the session does the same
+    for ``device=None``."""
+    import numpy as np
+    import torch
+
+    from vittf_tpu_torch.cli import serve
+    from vittf_tpu_torch.pipeline.session import InteractiveSession
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "volume.npy", rng.random((8, 8, 8)).astype(np.float32))
+    np.save(tmp_path / "x_features4.npy",
+            np.asarray({"k": rng.standard_normal((4, 4, 4, 4)).astype(np.float16)}, dtype=object))
+    np.save(tmp_path / "annotations.npy", {"a": rng.integers(0, 8, (3, 3))}, allow_pickle=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--data", str(tmp_path), "--max-updates", "1"])
+    assert not (tmp_path / "similarities.npy").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InteractiveSession.from_artifacts(tmp_path)
+    assert serve.main(["--data", str(tmp_path), "--max-updates", "1", "--cpu", "--no-prewarm",
+                       "--poll-interval", "0.05"]) == 0
+    assert (tmp_path / "similarities.npy").exists()
 
 
 def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):

@@ -106,6 +106,67 @@ def test_refine_similarities_batched_matches_jax(monkeypatch, chunk_voxels):
         got, rtol=0, atol=0)
 
 
+def _c2f_case():
+    """tests/test_bilateral.py::test_refine_batched_coarse_to_fine's case."""
+    rng = np.random.default_rng(12)
+    zz, yy, xx = np.mgrid[:12, :12, :12]
+    b0 = ((zz - 5) ** 2 + (yy - 5) ** 2 + (xx - 5) ** 2) < 4 ** 2
+    b1 = ((zz - 4) ** 2 + (yy - 8) ** 2 + (xx - 7) ** 2) < 3 ** 2
+    volhalf = np.where(b0, 0.9, np.where(b1, 0.6, 0.3))
+    vol = (np.kron(volhalf, np.ones((2, 2, 2)))
+           + 0.03 * rng.standard_normal((24, 24, 24))).astype(np.float32)
+    sims = np.stack([np.clip(b + 0.15 * rng.standard_normal(b.shape), 0, 1)
+                     for b in (b0, b1)]).astype(np.float32)
+    return vol, sims
+
+
+@pytest.mark.parametrize("how", ["bs_params", "env", "fine_maxiter"])
+def test_refine_batched_coarse_to_fine_matches_jax(monkeypatch, how):
+    """``bs_params['coarse_to_fine']`` and ``VITTF_BLS_COARSE=1`` (read by
+    both packages) reach the solve, with ``fine_maxiter``; the maps move
+    against the direct solve's by a few quantization steps at most."""
+    vol, sims = _c2f_case()
+    bs = None
+    if how == "env":
+        monkeypatch.setenv("VITTF_BLS_COARSE", "1")
+    else:
+        bs = {"coarse_to_fine": True}
+        if how == "fine_maxiter":
+            bs.update(fine_maxiter=2, cg_maxiter=12, lam=128.0)
+    want = np.asarray(jr.refine_similarities_batched(jnp.asarray(sims), jnp.asarray(vol),
+                                                     (12, 12, 12), bs_params=bs))
+    got = tr.refine_similarities_batched(torch.from_numpy(sims), vol, (12, 12, 12),
+                                         bs_params=bs).numpy()
+    _assert_u8_close(got, want)
+    monkeypatch.delenv("VITTF_BLS_COARSE", raising=False)
+    base = tr.refine_similarities_batched(torch.from_numpy(sims), vol, (12, 12, 12)).numpy()
+    assert not np.array_equal(got, base)
+    if how != "fine_maxiter":
+        d = np.abs(got.astype(np.int32) - base.astype(np.int32))
+        assert np.mean(d <= 3) > 0.999 and d.max() <= 8
+    off = tr.refine_similarities_batched(torch.from_numpy(sims), vol, (12, 12, 12),
+                                         bs_params={"coarse_to_fine": False}).numpy()
+    np.testing.assert_array_equal(off, base)
+
+
+def test_refine_entry_points_take_grid_and_bs_params():
+    rng = np.random.default_rng(5)
+    vol = rng.random((24, 24, 24)).astype(np.float32)
+    sim = np.zeros((12, 12, 12), np.float32)
+    sim[3:8, 3:9, 2:7] = rng.random((5, 6, 5)).astype(np.float32)
+    kw = dict(grid_params={"sigma_spatial": 4, "sigma_luma": 8},
+              bs_params={"lam": 64, "cg_maxiter": 10})
+    want = np.asarray(jr.refine_similarity(jnp.asarray(sim), jnp.asarray(vol), (12, 12, 12), **kw))
+    got = tr.refine_similarity(torch.from_numpy(sim), vol, (12, 12, 12), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    wantb = np.asarray(jr.refine_similarities_batched(jnp.asarray(sim[None]), jnp.asarray(vol),
+                                                      (12, 12, 12), **kw))
+    gotb = tr.refine_similarities_batched(torch.from_numpy(sim[None]), vol, (12, 12, 12), **kw)
+    _assert_u8_close(gotb.numpy(), wantb)
+    assert not torch.equal(gotb, tr.refine_similarities_batched(torch.from_numpy(sim[None]), vol,
+                                                                (12, 12, 12)))
+
+
 def test_refine_batched_all_empty_and_boxes():
     sims = np.zeros((2, 8, 8, 8), np.float32)
     got = tr.refine_similarities_batched(torch.from_numpy(sims), np.ones((16, 16, 16)), (8, 8, 8))

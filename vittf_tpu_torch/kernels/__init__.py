@@ -81,6 +81,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vittf_bls_slice.restype = i32
     lib.vittf_bls_blur.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.vittf_bls_blur.restype = i32
+    lib.vittf_bls_reblock.argtypes = [vp, vp, i32, i32, i32, i32, i32, ctypes.c_uint, vp]
+    lib.vittf_bls_reblock.restype = i32
+    lib.vittf_bls_unreblock.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.vittf_bls_unreblock.restype = i32
+    lib.vittf_bls_splat_blocked.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.vittf_bls_splat_blocked.restype = i32
+    lib.vittf_bls_slice_blocked.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.vittf_bls_slice_blocked.restype = i32
     lib.vittf_fused_block.argtypes = [vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.vittf_fused_block.restype = i32
 

@@ -88,6 +88,13 @@ def largest_component(mask: torch.Tensor, max_iter: int = 64, impl: str = "auto"
     return labels == torch.argmax(sizes)
 
 
+def largest_component_2d(mask: torch.Tensor, max_iter: int = 64) -> torch.Tensor:
+    """Largest 4-connected component of a 2D mask (the 2D solver's island
+    post-filter, reference bilateral_solver.py:199-207); ``'auto'`` takes the
+    native union-find on the mask as a depth-1 volume."""
+    return largest_component(mask, max_iter=max_iter)
+
+
 def filter_similarity_largest_island(sim_u8: torch.Tensor, threshold: int = 69,
                                      max_iter: int = 64, impl: str = "auto") -> torch.Tensor:
     """Threshold a uint8 similarity map, keep the largest island, zero the

@@ -1,8 +1,9 @@
-"""Binary erosion and small separable filters.
+"""Binary erosion, hole filling and small separable filters.
 
-Port of ``vittf_tpu/ops/morphology.py`` without ``binary_fill_holes``:
+Port of ``vittf_tpu/ops/morphology.py``:
 - binary erosion with scipy-compatible structuring elements, used by the
   surface annotation sampler (reference compare_feat_sampling.py:19-30);
+- ``binary_fill_holes``, the 2D bilateral solver's post-filter;
 - separable Sobel magnitude / Gaussian blur (bilateral_solver3d.py:169-181),
   the bilateral refinement's confidence map.
 """
@@ -82,3 +83,43 @@ def binary_erosion(mask: torch.Tensor, structure: np.ndarray | None = None) -> t
         idx = tuple(slice(r + o, r + o + s) for r, o, s in zip(radii, off, mask.shape))
         counts += padded[idx]
     return counts == len(offsets)
+
+
+def binary_fill_holes(mask: torch.Tensor, max_iter: int | None = None) -> torch.Tensor:
+    """scipy.ndimage.binary_fill_holes parity via background flood fill.
+
+    Background reachable from the border grows by face-connected dilation
+    until a fixed point (or ``max_iter`` dilations; default the voxel count,
+    the worst-case flood path); holes = ~mask ∧ ~reachable. The fixed point
+    is tested once per burst of dilations (8, doubling to 256), not once per
+    dilation, so the loop waits on the device a few times only; a dilation
+    past the fixed point changes nothing.
+    """
+    mask = mask.bool()
+    if max_iter is None:
+        max_iter = mask.numel()
+    free = ~mask
+    reach = torch.zeros_like(mask)
+    for ax in range(mask.ndim):
+        reach.select(ax, 0).fill_(True)
+        reach.select(ax, -1).fill_(True)
+    reach &= free
+
+    def dilate(r):
+        out = r.clone()
+        for ax in range(r.ndim):
+            n = r.shape[ax]
+            out.narrow(ax, 1, n - 1).logical_or_(r.narrow(ax, 0, n - 1))
+            out.narrow(ax, 0, n - 1).logical_or_(r.narrow(ax, 1, n - 1))
+        return out & free
+
+    done, burst = 0, 8
+    while done < max_iter:
+        before = reach
+        for _ in range(min(burst, max_iter - done)):
+            reach = dilate(reach)
+        done += burst
+        if torch.equal(reach, before):
+            break
+        burst = min(2 * burst, 256)
+    return mask | (~reach & free)

@@ -91,6 +91,7 @@ def compute_similarities(
     impl: str = "auto",
     bls_shape_bucket: int | None = None,
     bls_ref_u8: torch.Tensor | None = None,
+    mean_first: bool | None = None,
 ) -> dict[str, torch.Tensor] | None:
     """Per-class uint8 similarity volumes at half resolution.
 
@@ -116,6 +117,10 @@ def compute_similarities(
             plain twins of every kernel, on any device).
         bls_ref_u8: ``refine.make_bls_reference(volume, sim_shape)``, for
             callers that keep it across requests.
+        mean_first: overrides the single-class >1024 mean-first decision.
+            A session that recomputes only the edited classes passes the
+            decision taken on the full class set, so that the recompute is
+            bit-identical to recomputing every class.
     """
     if len(annotations) == 0:
         return None
@@ -131,7 +136,8 @@ def compute_similarities(
             "values: pass the volume array (or bls_shape_bucket with bls_ref_u8)"
         )
     sim_shape = tuple(d // 2 for d in in_dims)
-    mean_first = len(annotations) == 1 and counts[0] > 1024
+    if mean_first is None:
+        mean_first = len(annotations) == 1 and counts[0] > 1024
 
     abs_np = np.concatenate(
         [np.asarray(v) for v in annotations.values()], axis=0

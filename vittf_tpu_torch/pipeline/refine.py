@@ -16,7 +16,7 @@ Two entry points:
 
 The JAX twin's speculative path (``_refine_batched_speculative``,
 ``VITTF_BLS_SPECULATIVE``) hides round trips of a remote TPU and is not
-ported, nor is the coarse-to-fine solve.
+ported.
 """
 from __future__ import annotations
 
@@ -61,6 +61,7 @@ def make_bls_reference(volume, sim_shape: tuple[int, int, int], device=None) -> 
 
 
 def refine_similarity(sim: torch.Tensor, volume, sim_shape: tuple[int, int, int],
+                      grid_params: dict | None = None, bs_params: dict | None = None,
                       shape_bucket: int | None = None, pixel_impl: str = "auto") -> torch.Tensor:
     """Refine one class's similarity map with the 3D bilateral solver.
 
@@ -93,7 +94,8 @@ def refine_similarity(sim: torch.Tensor, volume, sim_shape: tuple[int, int, int]
     csim, cvol = crops
     cref = cvol[None].expand((3,) + tuple(cvol.shape))
     csolved = apply_bilateral_solver3d(
-        csim[None], cref, grid_params=BLS_GRID_PARAMS, pixel_impl=pixel_impl,
+        csim[None], cref, grid_params={**BLS_GRID_PARAMS, **(grid_params or {})},
+        bs_params=bs_params, pixel_impl=pixel_impl,
     )
     return write_crop_into(sim, csolved, mima)
 
@@ -127,10 +129,10 @@ def _prep_boxes_device(sims: torch.Tensor, sim_shape: tuple, thresh: float):
 
 
 def _refine_batched_core(sims: torch.Tensor, vol_u8: torch.Tensor, starts: np.ndarray,
-                         crop_shape: tuple[int, int, int],
-                         pixel_impl: str = "auto") -> torch.Tensor:
+                         crop_shape: tuple[int, int, int], solve_kw: dict) -> torch.Tensor:
     """Crop → Sobel confidence → bilateral solve → write-back → uint8
-    quantize for all classes of ``sims`` (C, …) in one batched pass.
+    quantize for all classes of ``sims`` (C, …) in one batched pass;
+    ``solve_kw`` are ``bilateral_solve_gray_batched``'s keywords.
     Returns (C, …) uint8."""
 
     def crop(x, st):
@@ -142,10 +144,7 @@ def _refine_batched_core(sims: torch.Tensor, vol_u8: torch.Tensor, starts: np.nd
     C = sims.shape[0]
     sob = filter_sobel_separated(cvol[:, None].float() / 255.0).reshape((C,) + crop_shape)
     conf = sob.amax(dim=(1, 2, 3), keepdim=True) - sob
-    solved = bilateral_solve_gray_batched(
-        csim, cvol.float(), conf, sigma_spatial=BLS_GRID_PARAMS["sigma_spatial"],
-        sigma_luma=BLS_GRID_PARAMS["sigma_luma"], pixel_impl=pixel_impl,
-    )
+    solved = bilateral_solve_gray_batched(csim, cvol.float(), conf, **solve_kw)
     out = sims.clone()
     for c, st in enumerate(starts):
         crop(out[c], st).copy_(solved[c])
@@ -155,6 +154,8 @@ def _refine_batched_core(sims: torch.Tensor, vol_u8: torch.Tensor, starts: np.nd
 
 
 def refine_similarities_batched(sims: torch.Tensor, volume, sim_shape: tuple[int, int, int],
+                                grid_params: dict | None = None,
+                                bs_params: dict | None = None,
                                 shape_bucket: int = 8,
                                 ref_u8: torch.Tensor | None = None,
                                 pixel_impl: str = "auto") -> torch.Tensor:
@@ -172,8 +173,16 @@ def refine_similarities_batched(sims: torch.Tensor, volume, sim_shape: tuple[int
     zeros). ``ref_u8`` is ``make_bls_reference``'s result, when the caller
     keeps it; otherwise it is built from ``volume``.
 
+    ``bs_params`` may hold ``lam``, ``cg_maxiter``, ``fine_maxiter`` and
+    ``coarse_to_fine``: a σ-doubled coarse solve starts the fine CG, which
+    then runs ``fine_maxiter`` (10) steps instead of 25
+    (``ops/bilateral.py::bilateral_solve_gray``). Off unless set here or by
+    ``VITTF_BLS_COARSE=1``.
+
     Returns (C, *sim_shape) uint8 (already 255/(0.99·max)-quantized).
     """
+    gp = {**BLS_GRID_PARAMS, **(grid_params or {})}
+    bs = bs_params or {}
     vol_u8 = ref_u8 if ref_u8 is not None else make_bls_reference(
         volume, sim_shape, device=sims.device)
     C = sims.shape[0]
@@ -191,16 +200,28 @@ def refine_similarities_batched(sims: torch.Tensor, volume, sim_shape: tuple[int
     starts = np.minimum(mi, np.asarray(sim_shape) - ext)
     starts[~nonempty] = 0
     ext = tuple(int(e) for e in ext)
+    c2f = bs.get("coarse_to_fine")
+    if c2f is None:
+        c2f = os.environ.get("VITTF_BLS_COARSE", "0") != "0"
+    solve_kw = dict(
+        sigma_spatial=int(gp["sigma_spatial"]),
+        sigma_luma=int(gp["sigma_luma"]),
+        lam=float(bs.get("lam", 256.0)),
+        cg_maxiter=int(bs.get("cg_maxiter", 25)),
+        coarse_to_fine=bool(c2f),
+        fine_maxiter=int(bs.get("fine_maxiter", 10)),
+        pixel_impl=pixel_impl,
+    )
     budget = int(os.environ.get("VITTF_BLS_CHUNK_VOXELS", 70_000_000))
     chunk = max(1, budget // max(1, int(np.prod(ext))))
     if chunk >= C:
-        return _refine_batched_core(sims, vol_u8, starts, ext, pixel_impl)
+        return _refine_batched_core(sims, vol_u8, starts, ext, solve_kw)
     n_pad = -C % chunk
     if n_pad:
         sims = torch.cat([sims, sims.new_zeros((n_pad,) + tuple(sim_shape))])
         starts = np.concatenate([starts, np.zeros((n_pad, 3), starts.dtype)])
     outs = [
-        _refine_batched_core(sims[i:i + chunk], vol_u8, starts[i:i + chunk], ext, pixel_impl)
+        _refine_batched_core(sims[i:i + chunk], vol_u8, starts[i:i + chunk], ext, solve_kw)
         for i in range(0, C + n_pad, chunk)
     ]
     return torch.cat(outs)[:C]
