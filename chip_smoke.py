@@ -13,7 +13,8 @@ fast); then the refinement path: the prediction CLI with the bilateral
 solver and the island filter, and three refined requests; then the
 blocked-form refinement (the split-form witness, the 2-D solver and
 coarse-to-fine) and the served path (the ``serve`` CLI answering annotation
-edits in a directory). Phases:
+edits in a directory); and the chained GEMM probe, the baselines path (the
+device SVM predict) and the tools path. Phases:
 
 1. card, versions, kernel build time;
 2. attention kernel vs plain at (8, 6, 4097, 64) bf16/fp32 and (2, 6, 17, 64),
@@ -32,6 +33,18 @@ edits in a directory). Phases:
    compared) with and without the softmax row max and with bf16 scores,
    each of the 11 loud blocks, and a (2, 640 + 37, 384) case with
    ``n_valid=640``; timed on ViT-S/8 block 0, and the 11-block ViT-S/8 stack;
+5a. chained GEMM kernel vs plain at (2048, 1536) x (1536, 1536), chain 1
+   and 32, in its three modes (bf16: one bf16 step at chain 1, 0.03·max|ref|
+   at chain 32; int8+requant and int8+shift bit-equal, also on operands with
+   a zero row and products that scale to exact .5 ties), timed beside 32
+   ``torch.matmul`` / ``torch._int_mm`` calls; then the probe's entry point
+   ``scripts.bench_int8_gemm`` at its defaults (63 launches), its printed
+   lines passed through;
+5b. baselines path: ``compose_features`` on a 256³ phantom,
+   ``sample_train_data``, then ``svm_predict_device`` over all 16.8 M voxels
+   with a seeded stand-in classifier (12 000 support vectors, 6 classes),
+   from a device tensor and host-streamed (bit-equal), against an fp64
+   evaluation of the same vote on 200 000 voxels (agreement >= 0.9999);
 6. main path: ``infer`` on a 128³ phantom, ``predict_ntf``, three requests;
    the attention and similarity launch counters must have risen;
 7. fused path: ``infer --block-impl fused`` on the same volume (528 fused
@@ -63,6 +76,11 @@ edits in a directory). Phases:
     without and with ``--bilateral-solver``, while a thread writes
     ``annotations.npy`` four times (five classes; one class edited; a class
     added; cleared); every answer is held against a fresh recompute;
+14a. tools path: the similarity kernel with no threshold on scores of either
+    sign vs plain; ``compare_sampling_strategies`` at 64³ x 384 (5 similarity
+    launches, maps vs the plain route within the uint8 contract);
+    ``resample_topk`` and ``apply_bilateral_solver3d_rgb`` (64³ RGB phantom)
+    against the same calls on CPU tensors; an ``mlp``-source extraction at 32³;
 15. with ``--profile`` only: torch.profiler traces of a warm 128³
     extraction (per-op blocks and fused blocks), of three requests and of
     three refined requests (device busy time, idle share, top kernels).
@@ -75,8 +93,10 @@ prints no result. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import shutil
 import subprocess
@@ -84,6 +104,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -96,6 +117,11 @@ from vittf_tpu_torch.core.io import load_features
 from vittf_tpu_torch.models import vit as vit_module
 from vittf_tpu_torch.models.dino import resolve_model
 from vittf_tpu_torch.models.vit import VisionTransformer, init_vit_params
+from vittf_tpu_torch.ops.bilateral_sparse import apply_bilateral_solver3d_rgb
+from vittf_tpu_torch.ops.query import resample_topk
+from vittf_tpu_torch.pipeline.annotations import sample_uniform
+from vittf_tpu_torch.pipeline.baselines import compose_features, sample_train_data, svm_predict_device
+from vittf_tpu_torch.pipeline.compare_sampling import compare_sampling_strategies, normalize_features
 from vittf_tpu_torch.ops.attention import attention, attention_plain, multi_head_attention
 from vittf_tpu_torch.ops.bilateral import (
     _blocked_pixel_view,
@@ -121,6 +147,8 @@ from vittf_tpu_torch.ops.bilateral import (
     bls_unreblock,
     bls_unreblock_plain,
 )
+from vittf_tpu_torch.ops.chain_gemm import MODES as CHAIN_MODES
+from vittf_tpu_torch.ops.chain_gemm import chain_gemm, chain_gemm_plain, wrap_int8
 from vittf_tpu_torch.ops.fused_block import fused_block, fused_block_plain
 from vittf_tpu_torch.ops.similarity import class_mean_matrix, similarity, similarity_plain
 from vittf_tpu_torch.pipeline.annotations import annotations_from_labels
@@ -133,6 +161,8 @@ from vittf_tpu_torch.pipeline.ntf import (
     fuse_predictions_host,
 )
 from vittf_tpu_torch.pipeline.refine import make_bls_reference, refine_similarities_batched
+from vittf_tpu_torch.scripts import bench_int8_gemm
+from vittf_tpu_torch.utils.tensor import ieee_matmul
 
 ATTN_SHAPE = (8, 6, 4097, 64)  # vits8 at fos 64: 8 slices, 6 heads, 64²+1 tokens
 BLOCK_SHAPE = (8, 4097, 384)  # the same slice batch as tokens of width D
@@ -144,14 +174,16 @@ BLOCKED_KERNELS = (bls_reblock, bls_unreblock, bls_splat_blocked, bls_slice_bloc
 BLS2D_SS, BLS2D_SL = 24, 4  # the 2-D solver's default grid
 # published peaks of one H100 SXM at its full power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+K9_ROWS, K9_DIM, K9_CHAIN = 2048, 1536, 32  # the probe's defaults
+K9_BF16_LIMIT = 0.03  # bf16 at chain 32: share of max|ref| (see phase_chain_gemm)
 
 
 def kernel_entry(err, ms, plain_ms, nbytes, ops, peak, library_ms=None) -> dict:
     """One kernel's measurements with its bound: the larger of the bytes it
     must move (inputs read once, outputs written once) over the memory rate
-    and its operations over the peak rate ``peak`` ('bf16' tensor cores or
-    'fp32' cores)."""
+    and its operations over the peak rate ``peak`` ('bf16' or 'int8' tensor
+    cores, or 'fp32' cores)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[peak] * 1e3
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -1183,6 +1215,325 @@ def phase_consistency(seed):
           f"{0.02 * want.abs().max().item()}), shape {tuple(got.shape)}")
 
 
+def k9_hard_operands(xi, wi):
+    """The probe's int8 operands with the bit-defined corners planted: row 0
+    of x is zero (row max 0: the 1e-6 floor, scale 1.27e8, result 0) and row
+    1 gives the products 254, 1, 5, 9, -1, -5, 0, ...: scale exactly 0.5, so
+    0.5, 2.5, 4.5 and their negatives are ties that round to the even
+    neighbour (0, 2, 4) where ``roundf`` would give 1, 3, 5."""
+    xi, wi = xi.clone(), wi.clone()
+    xi[:2] = 0
+    xi[1, 0], xi[1, 1] = 2, 1
+    wi[:2] = 0
+    wi[0, 0] = 127
+    wi[1, :6] = torch.tensor([0, 1, 5, 9, -1, -5], dtype=torch.int8)
+    return xi, wi
+
+
+def k9_library(x, w, chain, mode):
+    """The library's route to the same function, timed as a yardstick only:
+    ``torch.matmul`` in bf16, ``torch._int_mm`` plus the elementwise epilogue
+    in int8."""
+    for _ in range(chain):
+        if mode == "bf16":
+            x = x @ w
+            continue
+        y = torch._int_mm(x, w)
+        if mode == "int8+requant":
+            yf = y.float()
+            scale = torch.full_like(yf[:, :1], 127.0) / yf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+            x = torch.round(yf * scale).to(torch.int8)
+        else:
+            x = wrap_int8(y >> 8)
+    return x
+
+
+def k9_bf16_drift(x, w, chain):
+    """(max |a − b|, max |a|) after ``chain`` bf16 steps taken in two fp32
+    accumulation orders: a = one product over K, b = two half-K products
+    summed. A bf16 rounding flips per step and the chain feeds it forward:
+    the yardstick for the tolerance of the bf16 kernel."""
+    wf, half = w.float(), w.shape[0] // 2
+    a = b = x
+    with ieee_matmul():
+        for _ in range(chain):
+            a = (a.float() @ wf).to(torch.bfloat16)
+            bf = b.float()
+            b = (bf[:, :half] @ wf[:half] + bf[:, half:] @ wf[half:]).to(torch.bfloat16)
+    return (a.float() - b.float()).abs().max().item(), a.float().abs().max().item()
+
+
+def phase_chain_gemm():
+    """K9 against its plain version at the probe's shapes, chain 1 and 32,
+    three modes. The int8 modes are bit-defined and must be equal, on the
+    probe's operands and on ``k9_hard_operands``. bf16: one bf16 step at
+    chain 1 (|delta| <= 2^-7·|ref| + 1e-3); at chain 32 K9_BF16_LIMIT·max|ref|,
+    which must be no more than 3x the largest share by which two fp32
+    accumulation orders of the plain version move apart over the chain
+    (``k9_bf16_drift``), read here on the card at the probe's shape and on
+    CPU tensors at 256 and 512 rows."""
+    inputs = bench_int8_gemm.make_inputs(K9_ROWS, K9_DIM, "cuda")
+    hard = k9_hard_operands(*inputs["int8+requant"])
+    shares = []
+    for rows, where in ((K9_ROWS, "cuda"), (256, "cpu"), (512, "cpu")):
+        xb, wb = inputs["bf16"]
+        drift, ref = k9_bf16_drift(xb[:rows].to(where), wb.to(where), K9_CHAIN)
+        shares.append(drift / ref)
+        print(f"chain_gemm bf16: two accumulation orders of the plain version on {where}, {rows} rows, "
+              f"chain {K9_CHAIN}: max|delta| {drift} = {drift / ref} of max|ref|")
+    if not K9_BF16_LIMIT <= 3 * max(shares):
+        raise AssertionError(f"chain_gemm bf16 limit {K9_BF16_LIMIT} is over 3x the largest drift {max(shares)}")
+    ops = 2 * K9_ROWS * K9_DIM * K9_DIM * K9_CHAIN
+    modes = {}
+    for mode in CHAIN_MODES:
+        x, w = inputs[mode]
+        errs = {}
+        for chain in (1, K9_CHAIN):
+            got, want = chain_gemm(x, w, chain, mode), chain_gemm_plain(x, w, chain, mode)
+            torch.cuda.synchronize()
+            if mode != "bf16":
+                assert_equal(f"chain_gemm {mode} chain {chain}", got, want)
+                assert_equal(f"chain_gemm {mode} chain {chain}, planted rows",
+                             chain_gemm(*hard, chain, mode), chain_gemm_plain(*hard, chain, mode))
+                errs[chain] = 0.0
+            elif chain == 1:
+                errs[chain] = check_close("chain_gemm bf16 chain 1", got, want, 2.0**-7, 1e-3)
+            else:
+                errs[chain] = check_rel(f"chain_gemm bf16 chain {chain}", got, want, K9_BF16_LIMIT)
+                print(f"chain_gemm bf16 chain {chain}: max|ref| {want.float().abs().max().item()}")
+        if mode == "int8+requant":
+            first = chain_gemm(*hard, 1, mode)
+            want = torch.tensor([127, 0, 2, 4, 0, -2], dtype=torch.int8, device="cuda")
+            if first[0].any() or not torch.equal(first[1, :6], want):
+                raise AssertionError(f"chain_gemm requant corners: {first[1, :8].tolist()}")
+        ms = cuda_ms(lambda: chain_gemm(x, w, K9_CHAIN, mode))
+        plain_ms = cuda_ms(lambda: chain_gemm_plain(x, w, K9_CHAIN, mode), reps=3)
+        lib_ms = cuda_ms(lambda: k9_library(x, w, K9_CHAIN, mode))
+        modes[mode] = kernel_entry(
+            errs[K9_CHAIN], ms, plain_ms, nbytes=x.element_size() * (2 * x.numel() + w.numel()),
+            ops=ops, peak="bf16" if mode == "bf16" else "int8", library_ms=lib_ms)
+        print(f"chain_gemm ({K9_ROWS}, {K9_DIM}) x ({K9_DIM}, {K9_DIM}) chain {K9_CHAIN} {mode}: "
+              f"max_abs_err chain 1 {errs[1]}, chain {K9_CHAIN} {errs[K9_CHAIN]}; kernel {ms} ms "
+              f"({ops / ms / 1e9} Tops/s) plain {plain_ms} ms library {lib_ms} ms bound "
+              f"{modes[mode]['bound_ms']} ms")
+    return {**modes["bf16"], "modes": modes}
+
+
+def phase_probe_path():
+    """The probe's entry point at its defaults: 3 modes x (1 warm-up + 20
+    timed calls) = 63 launches; its five printed lines are passed through."""
+    chain_gemm.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_int8_gemm.main([])
+    n = chain_gemm.launches
+    lines = buf.getvalue().rstrip().splitlines()
+    print("\n".join(lines))
+    print(f"launches in the probe's path: chain_gemm {n}")
+    if rc != 0 or len(lines) != 5 or n != 63:
+        raise AssertionError(f"probe path: rc {rc}, {len(lines)} lines, {n} launches")
+    return n
+
+
+def stand_in_svc(train_X, train_y, seed):
+    """A seeded stand-in for a fitted ``sklearn.svm.SVC`` (the card's machine
+    has no sklearn), carrying exactly the fitted attributes that
+    ``svm_predict_device`` reads. The support vectors are the sampled
+    training rows grouped by class, as libsvm keeps them; in the pair (i, j)
+    class i's vectors weigh in with +u and class j's with −u, u ~ U(0, 1)
+    (sklearn's compressed one-vs-one layout of y·alpha)."""
+    rng = np.random.default_rng(seed)
+    order = np.argsort(train_y, kind="stable")
+    sv, y = train_X[order].astype(np.float64), train_y[order]
+    classes = np.unique(y)
+    k = len(classes)
+    n_support = np.array([(y == c).sum() for c in classes], np.int32)
+    starts = np.concatenate([[0], np.cumsum(n_support)])
+    dual = np.zeros((k - 1, len(y)))
+    for i in range(k):
+        for j in range(i + 1, k):
+            dual[j - 1, starts[i]:starts[i + 1]] = rng.uniform(0, 1, n_support[i])
+            dual[i, starts[j]:starts[j + 1]] = -rng.uniform(0, 1, n_support[j])
+    return types.SimpleNamespace(
+        kernel="rbf", support_vectors_=sv, dual_coef_=dual,
+        intercept_=rng.normal(0, 0.1, k * (k - 1) // 2), n_support_=n_support,
+        classes_=classes.astype(np.uint8), _gamma=1.0 / sv.shape[1])
+
+
+def svm_votes_fp64(clf, x, chunk=8192):
+    """The one-vs-one vote of ``clf`` on (n, F) rows in fp64, written
+    independently of the port's tile function: per pair a signed sum over
+    the two classes' support vectors."""
+    sv = torch.as_tensor(clf.support_vectors_, dtype=torch.float64, device=x.device)
+    dual = torch.as_tensor(clf.dual_coef_, dtype=torch.float64, device=x.device)
+    b = torch.as_tensor(clf.intercept_, dtype=torch.float64, device=x.device)
+    starts = np.concatenate([[0], np.cumsum(clf.n_support_)])
+    k = len(clf.classes_)
+    out = []
+    for s0 in range(0, x.shape[0], chunk):
+        xc = x[s0:s0 + chunk].double()
+        K = torch.exp(-clf._gamma * torch.cdist(xc, sv).square())
+        votes = torch.zeros((xc.shape[0], k), dtype=torch.int64, device=x.device)
+        p = 0
+        for i in range(k):
+            for j in range(i + 1, k):
+                si, sj = slice(starts[i], starts[i + 1]), slice(starts[j], starts[j + 1])
+                dec = K[:, si] @ dual[j - 1, si] + K[:, sj] @ dual[i, sj] + b[p]
+                votes[:, i] += dec > 0
+                votes[:, j] += dec <= 0
+                p += 1
+        out.append(votes.argmax(dim=1))
+    return torch.cat(out).cpu().numpy().astype(np.uint8)
+
+
+def phase_baselines(seed, size=256, per_class=2000, n_check=200_000):
+    """The baselines path: ``compose_features`` on a 256³ phantom,
+    ``sample_train_data`` at 2000 annotations for each of 6 classes, then
+    ``svm_predict_device`` over every voxel with the stand-in classifier
+    (12 000 support vectors), once from the device tensor and once streamed
+    from host memory. Both routes must agree bit for bit, and with an fp64
+    evaluation of the same vote on 200 000 voxels at >= 0.9999 (a flip needs
+    a decision within ~1e-5 of 0)."""
+    vol, labels = phantom(size, seed + 23)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = compose_features(torch.from_numpy(vol).to("cuda"))
+    torch.cuda.synchronize()
+    t_compose = time.perf_counter() - t0
+    if tuple(feats.shape) != (11, size, size, size) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"composed features {tuple(feats.shape)}")
+    rng = np.random.default_rng(seed)
+    ann = annotations_from_labels(labels, per_class, "uniform", rng=rng, device="cuda")
+    ann["background"] = sample_uniform(torch.from_numpy(labels == 0).to("cuda"), per_class, rng=rng)
+    train_X, train_y = sample_train_data(feats, ann)
+    clf = stand_in_svc(train_X, train_y, seed)
+    flat = torch.movedim(feats, 0, -1).reshape(-1, 11)
+    n = flat.shape[0]
+    del feats
+    secs, preds = {}, {}
+    for route, x in (("device", flat), ("host-streamed", flat.cpu().numpy())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds[route] = svm_predict_device(clf, x, device="cuda")
+        torch.cuda.synchronize()
+        secs[route] = time.perf_counter() - t0
+    if not np.array_equal(preds["device"], preds["host-streamed"]):
+        raise AssertionError("svm_predict_device: the two input routes disagree")
+    pick = np.sort(np.random.default_rng(seed + 1).choice(n, n_check, replace=False))
+    want = svm_votes_fp64(clf, flat[torch.from_numpy(pick).to("cuda")])
+    agree = float((preds["device"][pick] == want).mean())
+    counts = np.bincount(preds["device"], minlength=6)
+    print(f"baselines path {size}^3: compose_features {t_compose} s; train rows {train_X.shape}, "
+          f"support vectors {clf.support_vectors_.shape}; svm_predict_device over {n} voxels: "
+          f"device tensor {secs['device']} s ({n / secs['device'] / 1e6} Mvoxel/s), host-streamed "
+          f"{secs['host-streamed']} s ({n / secs['host-streamed'] / 1e6} Mvoxel/s), routes "
+          f"bit-equal; agreement with the fp64 vote on {n_check} voxels {agree}; predicted "
+          f"class counts {counts.tolist()}")
+    if train_X.shape != (6 * per_class, 11) or not agree >= 0.9999 or (counts > 0).sum() < 3:
+        raise AssertionError(f"baselines path: agreement {agree}, class counts {counts.tolist()}")
+
+
+def rgb_phantom(size, seed):
+    """(target (size³) fp32 in [0, 1], reference (3, size³) uint8): the
+    phantom's ellipsoids in three colour channels of distinct mixing."""
+    vol, labels = phantom(size, seed)
+    v = (vol - vol.min()) / (vol.max() - vol.min())
+    mix = np.array([[1.0, 0.0], [0.6, 0.4], [0.3, 0.7]], np.float32)
+    tint = (labels.astype(np.float32) / 5.0)
+    r = np.stack([m[0] * v + m[1] * tint for m in mix])
+    rng = np.random.default_rng(seed + 1)
+    t = np.clip((labels == 1) * 0.7 + 0.15 + 0.1 * rng.standard_normal(v.shape), 0, 1)
+    return t.astype(np.float32), np.trunc(255.0 * r).astype(np.uint8)
+
+
+def phase_tools(seed, workdir: Path, size=64):
+    """The tools path: the sampling-strategy comparison at 64³ x 384 (K2 with
+    no threshold and scores of either sign, maps against the plain route
+    within the uint8 contract), ``resample_topk`` on tie-heavy maps, the
+    sparse RGB bilateral solve against the same solve on CPU tensors, and
+    an extraction with the CLIP/BLIP feature source. Returns K2's launches
+    in the comparison's own run."""
+    _, labels = phantom(size, seed + 29)
+    gen = torch.Generator().manual_seed(seed + 29)
+    centers = torch.randn(6, SIM_F, generator=gen)
+    feats = centers[torch.from_numpy(labels.astype(np.int64))] + 1.5 * torch.randn(
+        (size,) * 3 + (SIM_F,), generator=gen)
+    feats = torch.movedim(feats, -1, 0).contiguous().to("cuda")  # (F, 64, 64, 64)
+
+    # K2 in this regime, kernel against plain, exponents 2 (the tool's) and 3
+    fn = normalize_features(feats)
+    flat = torch.movedim(fn, 0, -1).reshape(-1, SIM_F).contiguous()
+    queries = flat[:: flat.shape[0] // 256][:256].contiguous()
+    m = torch.from_numpy(class_mean_matrix([256], 256)).to("cuda")
+    errs = []
+    for exponent in (2.0, 3.0):
+        got = similarity(flat, queries, m, threshold=-1e30, exponent=exponent)
+        want = similarity_plain(flat, queries, m, threshold=-1e30, exponent=exponent)
+        errs.append(check_close(f"similarity no threshold exponent {exponent}", got, want,
+                                1e-4, 1e-6))
+        negative = int((want < 0).sum().item())
+    print(f"similarity ({flat.shape[0]}, {SIM_F}) x (256, {SIM_F}) threshold -1e30, exponents "
+          f"2 and 3: max_abs_err {errs}; negative means at exponent 3: {negative}")
+    if negative == 0:
+        raise AssertionError("the no-threshold case holds no negative score")
+
+    similarity.launches = 0
+    t0 = time.perf_counter()
+    written = compare_sampling_strategies(feats, labels, 256, workdir / "cmp", rng=np.random.default_rng(seed))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_sim = similarity.launches
+    plain = compare_sampling_strategies(feats, labels, 256, workdir / "cmp_plain",
+                                        rng=np.random.default_rng(seed), impl="plain")
+    n_diff = 0
+    for key, path in written.items():
+        got = np.load(path)
+        if got.shape != (size,) * 3 or got.dtype != np.uint8 or not got.any():
+            raise AssertionError(f"comparison map {key}: {got.shape} {got.dtype}")
+        n_diff += check_u8_maps(f"comparison map {key}", torch.from_numpy(got),
+                                torch.from_numpy(np.load(plain[key])))
+    print(f"tools path: compare_sampling_strategies {size}^3 x {SIM_F}, {len(written)} maps in "
+          f"{dt} s, similarity launches {n_sim}; vs the plain route {n_diff} voxels differ by 1")
+    if len(written) != 5 or n_sim != 5:
+        raise AssertionError(f"comparison: {len(written)} maps, {n_sim} launches")
+
+    maps = torch.stack([torch.from_numpy(np.load(p)) for p in written.values()]).to("cuda")
+    sims = (maps.float() / 255.0).reshape(5, 1, size, size, size)  # 256 levels: heavy ties
+    got = resample_topk(fn, sims, K=8)
+    want = resample_topk(fn.cpu(), sims.cpu(), K=8)
+    err = check_close("resample_topk card vs CPU", got.cpu(), want, 1e-4, 1e-5)
+    print(f"resample_topk {tuple(sims.shape)} K=8: max_abs_err to the CPU run {err}")
+    del feats, fn, flat, maps, sims, got, want
+
+    t, r = rgb_phantom(size, seed + 31)
+    gp = {"sigma_spatial": 8, "sigma_luma": 16, "sigma_chroma": 16}
+    t0 = time.perf_counter()
+    got = apply_bilateral_solver3d_rgb(torch.from_numpy(t).to("cuda"), r, grid_params=gp)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    want = apply_bilateral_solver3d_rgb(torch.from_numpy(t), r, grid_params=gp)
+    err = check_close("sparse RGB bilateral solve card vs CPU", got.cpu(), want, 0.0, 2e-4)
+    print(f"apply_bilateral_solver3d_rgb {size}^3: {dt} s (host hash build included), "
+          f"max_abs_err to the CPU solve {err}, output std {want.std().item()}")
+    if not want.std().item() > 0.01:
+        raise AssertionError("the sparse solve's output is flat")
+
+    cfg = resolve_model("vits8")
+    params = init_vit_params(cfg, (0, seed))
+    vol, _ = phantom(32, seed + 37)
+    outs = {}
+    for impl in ("auto", "plain"):
+        ex = ExtractConfig(feature_output_size=32, compute_dtype="bfloat16", attn_impl=impl,
+                           feature_source="mlp")
+        outs[impl] = extract_features(vol, params, cfg, ex, device="cuda")["k"]
+    if tuple(outs["auto"].shape) != (cfg.embed_dim // 3, 32, 32, 32):
+        raise AssertionError(f"mlp-source features {tuple(outs['auto'].shape)}")
+    err = check_rel("mlp-source extraction kernels vs plain", outs["auto"], outs["plain"], 0.02)
+    print(f"mlp-source extraction 32^3 fos 32: shape {tuple(outs['auto'].shape)}, kernels vs "
+          f"plain max_abs_err {err} (limit {0.02 * outs['plain'].abs().max().item()})")
+    return n_sim
+
+
 def device_breakdown(prof, wall_s: float, label: str, top: int = 6):
     """Print device busy time, idle share and the top kernels of a trace.
 
@@ -1274,6 +1625,9 @@ def main() -> int:
     entries = {"attention": phase_attention(gen), "similarity": phase_similarity(gen)}
     entries.update(phase_bilateral(gen))
     entries["fused_block"] = phase_fused_block(gen)
+    entries["chain_gemm"] = phase_chain_gemm()
+    n_k9 = phase_probe_path()
+    phase_baselines(args.seed)
     with tempfile.TemporaryDirectory(prefix="vittf_smoke_") as tmp:
         n_attn, n_sim, vol, labels, feat_t = phase_main_path(args.seed, Path(tmp))
         n_k3 = phase_fused_path(args.seed, Path(tmp))
@@ -1286,6 +1640,7 @@ def main() -> int:
         phase_coarse_to_fine(args.seed)
         phase_served(args.seed, Path(tmp), vol, labels,
                      Path(tmp) / "volume_vits8_all_features64.npy")
+        n_sim += phase_tools(args.seed, Path(tmp))
     if args.profile:
         phase_profile(args.seed)
 
@@ -1303,6 +1658,7 @@ def main() -> int:
          n_blocked[2]),
         ("bls_slice_blocked", "bilateral_reblock.cu", "vittf_tpu/ops/bilateral.py:279",
          n_blocked[3]),
+        ("chain_gemm", "chain_gemm.cu", "scripts/bench_int8_gemm.py:60", n_k9),
     ]
     if min(n for *_, n in kernel_list) == 0:
         raise AssertionError(f"a kernel was launched no time on its path: {kernel_list}")

@@ -59,6 +59,12 @@ def _backbone_keys(cfg: ViTConfig) -> list[str]:
     return keys
 
 
+def backbone_state_dict(sd: dict, cfg: ViTConfig) -> dict[str, torch.Tensor]:
+    """The backbone's tensors of a hub-layout ``state_dict``, in fp32; keys
+    outside the backbone are dropped, a missing one raises ``KeyError``."""
+    return {k: torch.as_tensor(sd[k]).detach().float() for k in _backbone_keys(cfg)}
+
+
 def load_dino_checkpoint(path: str | Path, cfg: ViTConfig) -> dict[str, torch.Tensor]:
     """Load a DINO ``.pth`` checkpoint as a backbone ``state_dict`` (fp32).
 
@@ -69,7 +75,7 @@ def load_dino_checkpoint(path: str | Path, cfg: ViTConfig) -> dict[str, torch.Te
         sd = sd["state_dict"]
     if isinstance(sd, dict) and "teacher" in sd:
         sd = {k.replace("backbone.", ""): v for k, v in sd["teacher"].items()}
-    return {k: sd[k].detach().float() for k in _backbone_keys(cfg)}
+    return backbone_state_dict(sd, cfg)
 
 
 def params_from_jax(params: dict) -> dict[str, torch.Tensor]:

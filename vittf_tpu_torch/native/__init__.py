@@ -1,13 +1,13 @@
 """ctypes bindings for the shared host library ``native/vittf_native.cpp``.
 
-The port's copy of the ``vittf_tpu.native`` loader, for the two
-connected-component entry points. The library is compiled at first use with
+The port's copy of the ``vittf_tpu.native`` loader: the two
+connected-component entry points and the sparse bilateral grid's hash build. The library is compiled at first use with
 
     g++ -O3 -shared -fPIC native/vittf_native.cpp -o vittf_tpu_torch/_build/libvittf_native_<hash>.so
 
 (the name carries a hash of the source and flags; nothing is written next to
 the source). A missing compiler or a failed build raises: there is no
-fallback. Both functions take and return numpy arrays.
+fallback. All functions take and return numpy arrays.
 """
 from __future__ import annotations
 
@@ -62,6 +62,8 @@ def get_lib() -> ctypes.CDLL:
     lib.cc3d_label.argtypes = [u8p, i32, i32, i32, i32p]
     lib.cc3d_largest.restype = ctypes.c_int64
     lib.cc3d_largest.argtypes = [u8p, i32, i32, i32, u8p]
+    lib.bilateral_grid_build.restype = i32
+    lib.bilateral_grid_build.argtypes = [i32p, ctypes.c_int64, i32, i32p, i32, i32p]
     _lib = lib
     return lib
 
@@ -95,3 +97,30 @@ def cc3d_largest(mask) -> np.ndarray:
     get_lib().cc3d_largest(_as_ptr(mask, ctypes.c_uint8), *mask.shape,
                            _as_ptr(out, ctypes.c_uint8))
     return out.astype(bool)
+
+
+def bilateral_grid_build(
+    coords, max_vertices: int | None = None
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Hash (npix, dim) int coords to unique vertices + blur neighbors.
+
+    Returns (vertex_of_pixel (npix,), neighbors (nverts, dim, 2) with -1
+    for absent, nverts). Coordinate values must be in [0, 1024) — the
+    native key packs dim≤6 fields of 10 bits each.
+    """
+    coords = np.ascontiguousarray(np.asarray(coords, np.int32))
+    if coords.size and (coords.min() < 0 or coords.max() >= 1024):
+        raise ValueError("bilateral_grid_build coords must be in [0, 1024)")
+    npix, dim = coords.shape
+    if max_vertices is None:
+        max_vertices = npix
+    vop = np.zeros(npix, np.int32)
+    neighbors = np.full((max_vertices, dim, 2), -1, np.int32)
+    n = get_lib().bilateral_grid_build(
+        _as_ptr(coords, ctypes.c_int32), npix, dim,
+        _as_ptr(vop, ctypes.c_int32), max_vertices,
+        _as_ptr(neighbors, ctypes.c_int32),
+    )
+    if n < 0:
+        raise ValueError("max_vertices too small")
+    return vop, neighbors[:n], int(n)

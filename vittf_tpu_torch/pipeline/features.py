@@ -57,6 +57,9 @@ class ExtractConfig:
     precision: str = "default"  # 'default' (bf16 speed) | 'highest' (fp32 parity)
     attn_impl: str = "auto"  # 'auto' (CUDA kernel on GPU) | 'plain'
     compute_dtype: str = "float32"  # activation dtype: bfloat16 for speed
+    # 'qkv' = DINO path (infer.py hook target); 'mlp' = CLIP/BLIP path
+    # (infer_clip.py hooks blocks[-1].mlp and splits the output in thirds)
+    feature_source: str = "qkv"
     # Fast mode: run the ViT only on the slices nearest the pooled output
     # grid (the reference's sketched shortcut, infer.py:160-166); NOT
     # artifact-parity with the full sweep.
@@ -66,6 +69,15 @@ class ExtractConfig:
     # package 'fused_rows' equals 'fused_max': the TPU's row-grid body
     # computes the same values, so both run the same kernel with the row max.
     block_impl: str = "xla"
+
+    def pooling(self, axis_mode: str | None = None) -> bool:
+        """The slice axis is pooled only in the 'all' sweep (infer.py:329 vs
+        :326's pool_fn=_noop)."""
+        return (axis_mode or self.slice_along) == "all"
+
+    def feature_dim(self, embed_dim: int) -> int:
+        """Channels per returned key: D for 'qkv', D/3 for 'mlp'."""
+        return embed_dim if self.feature_source == "qkv" else embed_dim // 3
 
 
 def compute_im_sizes(
@@ -109,11 +121,15 @@ def fold_grayscale_patch_embed(state_dict: dict) -> dict:
 
 
 def _slice_batch_features(
-    model, batch, img_hw, f_hw, key_idx, precision, attn_impl, block_impl, mima
+    model, batch, img_hw, f_hw, key_idx, precision, attn_impl, block_impl, mima,
+    feature_source="qkv",
 ):
     """One (B, C, a, b) raw slice batch through the ViT → per-key
     (B, fh·fw, D) fp32 features from the last block's qkv projection (the
-    DINO hook target, infer.py).
+    DINO hook target, infer.py), or (B, fh·fw, D/3) thirds of the last
+    block's MLP output for ``feature_source='mlp'`` (infer_clip.py). The MLP
+    output needs the whole last block, which therefore runs per-op under
+    every ``block_impl``.
 
     ``mima``: the volume's global (min, max) as fp32 scalars; min-max
     normalization runs here, after the nearest resize (which commutes with
@@ -135,15 +151,17 @@ def _slice_batch_features(
     # the softmax row max guards against: 'fused' skips it, as the JAX
     # package does; 'fused_max' asks for it.
     block_impl = {"fused": "fused_nomax", "fused_max": "fused"}.get(block_impl, block_impl)
-    # only the requested thirds of the last block's projection
+    # qkv: only the requested thirds of the last block's projection
+    thirds = tuple(key_idx) if feature_source == "qkv" else None
     _, qkv = model.forward_raw(
         imgs, precision=precision, attn_impl=attn_impl, return_qkv_last=True,
-        capture="qkv", stop_after_capture=True, capture_thirds=tuple(key_idx),
-        block_impl=block_impl,
+        capture=feature_source, stop_after_capture=thirds is not None,
+        capture_thirds=thirds, block_impl=block_impl,
     )
-    n, B = len(key_idx), batch.shape[0]
+    n, B = len(key_idx) if thirds is not None else 3, batch.shape[0]
     feats = qkv[:, 1:].reshape(B, f_hw[0] * f_hw[1], n, qkv.shape[-1] // n)  # CLS dropped
-    return [feats[:, :, i].float() for i in range(n)]
+    return [feats[:, :, i if thirds is not None else ki].float()
+            for i, ki in enumerate(key_idx)]
 
 
 def _subsample_slice_indices(S: int, target: int) -> np.ndarray:
@@ -237,7 +255,7 @@ def _accumulate(model, batches, acc, w_pool, img_hw, f_hw, key_idx, cfg, mima):
     for s0, batch in batches:
         fks = _slice_batch_features(
             model, batch, img_hw, f_hw, key_idx, cfg.precision, cfg.attn_impl,
-            cfg.block_impl, mima,
+            cfg.block_impl, mima, cfg.feature_source,
         )
         for a, fk in zip(acc, fks):
             nb = fk.shape[0]
@@ -269,9 +287,10 @@ def _extract_axis(model, vol, mima, model_cfg, cfg, axis, im_sz, feat_out_sz):
     key_idx = tuple(_qkv_index(k) for k in cfg.return_keys)
     B = cfg.batch_size
     batches = ((s0, slices[s0:s0 + B].contiguous()) for s0 in range(0, slices.shape[0], B))
-    acc = _new_accumulators(len(key_idx), o_ax, f_hw, model_cfg.embed_dim, vol.device)
+    D = cfg.feature_dim(model_cfg.embed_dim)
+    acc = _new_accumulators(len(key_idx), o_ax, f_hw, D, vol.device)
     acc = _accumulate(model, batches, acc, w_pool, img_hw, f_hw, key_idx, cfg, mima)
-    return _pooled_to_volume(acc, cfg.return_keys, f_hw, o_ax, out_axis, model_cfg.embed_dim)
+    return _pooled_to_volume(acc, cfg.return_keys, f_hw, o_ax, out_axis, D)
 
 
 def _pool_to(feat: torch.Tensor, feat_out_sz: tuple[int, int, int]) -> torch.Tensor:
@@ -311,6 +330,8 @@ def extract_features(
     ``slice_along='all'`` the per-axis pooled volumes are summed.
     """
     _check_block_impl(cfg.block_impl)
+    if cfg.feature_source not in ("qkv", "mlp"):
+        raise ValueError(f"unknown feature_source: {cfg.feature_source!r}")
     if not torch.is_tensor(vol):
         vol = torch.from_numpy(np.ascontiguousarray(vol))
     if vol.dtype not in _KEEP_DTYPES:

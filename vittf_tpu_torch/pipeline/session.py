@@ -29,16 +29,7 @@ from vittf_tpu_torch.pipeline.ntf import (
     fuse_predictions,
     fuse_predictions_host,
 )
-
-
-def _resolve_device(device) -> torch.device:
-    """``device``, or the first CUDA device when it is None; never a silent
-    fallback to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible; pass device='cpu' to run on the CPU")
-    return torch.device("cuda", 0)
+from vittf_tpu_torch.utils.tensor import resolve_device as _resolve_device
 
 
 def _default_thresholds(n: int) -> list[float]:

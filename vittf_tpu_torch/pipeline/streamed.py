@@ -58,7 +58,7 @@ def extract_features_streamed(
     # one pass over the host array for the normalization scalars
     mima = tuple(torch.tensor(float(np.float32(f(vol))), device=device) for f in (np.min, np.max))
     key_idx = tuple(_qkv_index(k) for k in cfg.return_keys)
-    D, bs = model_cfg.embed_dim, cfg.batch_size
+    D, bs = cfg.feature_dim(model_cfg.embed_dim), cfg.batch_size
     axes = ["z", "y", "x"] if cfg.slice_along == "all" else [cfg.slice_along]
     out: dict[str, torch.Tensor] = {}
     for ax in axes:

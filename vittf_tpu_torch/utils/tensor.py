@@ -4,6 +4,8 @@ Port of ``vittf_tpu/utils/tensor.py`` (reference infer.py:10-40).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 # ImageNet normalization constants (reference: infer.py:39-40).
@@ -43,3 +45,33 @@ def imagenet_normalize(images: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
     std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
     return (images - mean.reshape(3, 1, 1)) / std.reshape(3, 1, 1)
+
+
+def resolve_device(device) -> torch.device:
+    """``device``, or the first CUDA device when it is None; never a silent
+    fallback to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
+
+
+def place(x, device=None) -> torch.Tensor:
+    """``x`` as a tensor on ``device``. With no device given a tensor stays
+    where it lies, and host data (a numpy array) goes to the first CUDA
+    device or raises, as ``resolve_device`` does."""
+    if torch.is_tensor(x) and device is None:
+        return x
+    return torch.as_tensor(x).to(resolve_device(device))
+
+
+@contextlib.contextmanager
+def ieee_matmul():
+    """fp32 matrix products in IEEE fp32 (no TF32) inside the block."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
