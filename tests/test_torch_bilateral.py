@@ -193,3 +193,57 @@ def test_unported_lowerings_are_refused(gray_volume):
     for impl in ("scan", "pallas_interpret", "gather"):
         with pytest.raises(ValueError, match="unknown pixel_impl"):
             tb.bilateral_solve_gray(*args, pixel_impl=impl)
+
+
+def _ordered_splat_model(luma, t, c, ss, sl):
+    """The order the card's splat (K4) promises, written out in numpy: every
+    lattice vertex is the fp32 sum of its voxels taken one after the other in
+    ascending flat voxel index, t·c rounded before it is added. (3, nverts)."""
+    shape = luma.shape
+    ext = tb._grid_extents(shape, ss, sl)
+    idx = np.indices(shape)
+    vid = np.zeros(shape, np.int64)
+    for ax in range(len(shape)):
+        vid = vid * ext[ax] + idx[ax] // ss
+    vid = (vid * ext[-1] + (luma / np.float32(sl)).astype(np.int64)).reshape(-1)
+    out = np.zeros((3, int(np.prod(ext))), np.float32)
+    planes = (np.ones(vid.shape, np.float32), c.reshape(-1), (t * c).astype(np.float32).reshape(-1))
+    for k, plane in enumerate(planes):
+        for v, x in zip(vid, plane):  # one add at a time, in voxel order, in fp32
+            out[k, v] = np.float32(out[k, v] + x)
+    return out
+
+
+@pytest.mark.parametrize("shape,ss,sl", [((11, 9, 13), 4, 8), ((7, 6, 5), 7, 5), ((13, 10), 3, 8)])
+def test_splat_plain_on_cpu_sums_in_ascending_voxel_order(shape, ss, sl):
+    """``bls_splat_plain`` on CPU tensors equals the order-fixed model bit for
+    bit: it is the yardstick the card's kernel is held to exactly."""
+    luma, t, c = _planes(shape, 11)
+    want = _ordered_splat_model(luma, t, c, ss, sl)
+    got = tb.bls_splat_plain(*(torch.from_numpy(a[None]) for a in (luma, t, c)), ss, sl)
+    np.testing.assert_array_equal(got[0].reshape(3, -1).numpy(), want)
+
+
+def test_splat_plain_matches_pallas_interpret_on_a_ragged_crop():
+    """The 61 x 47 x 53 crop of the card's check at the refinement's grid
+    (sigma 7 / 5): no axis is a multiple of the cell."""
+    shape, ss, sl = (61, 47, 53), 7, 5
+    ext = jb._grid_extents(shape, ss, sl)
+    sp_ext, L = ext[:-1], ext[-1]
+    luma, t, c = _planes(shape, 12)
+    want = np.asarray(jb._splat_fused3d_pallas(
+        jb._pad5d_fill(jnp.asarray(luma), ss, sp_ext, -2.0 * sl),
+        jb._pad5d_fill(jnp.asarray(t), ss, sp_ext, 0),
+        jb._pad5d_fill(jnp.asarray(c), ss, sp_ext, 0),
+        sl, ss, sp_ext, L, interpret=True,
+    ))
+    got = tb.bls_splat_plain(*(torch.from_numpy(a[None]) for a in (luma, t, c)), ss, sl)[0].numpy()
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[0].sum() == np.prod(shape)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=1e-5, atol=1e-5)
+
+
+def test_splat_plain_repeats_bit_for_bit():
+    luma, t, c = (torch.from_numpy(a[None]) for a in _planes((17, 20, 13), 13))
+    torch.testing.assert_close(tb.bls_splat_plain(luma, t, c, 4, 8),
+                               tb.bls_splat_plain(luma, t, c, 4, 8), rtol=0, atol=0)

@@ -378,3 +378,52 @@ def test_coarse_to_fine_guard_takes_the_direct_solve():
                                                pixel_impl="scan", coarse_to_fine=True,
                                                fine_maxiter=1, **kw2))
     np.testing.assert_allclose(two.numpy(), want2, rtol=2e-4, atol=2e-4)
+
+
+def _ordered_blocked_splat_model(il_b, c_b, tc_b, L, groups):
+    """The order the card's blocked splat (K7a) promises, in numpy: every
+    (cell, bin) is the fp32 sum of the cell's slots taken one after the other
+    in ascending slot index (rows of the cell, then lanes)."""
+    n_rows, pb = il_b.shape
+    n_cells = n_rows // groups
+    out = np.zeros((3, n_cells, L), np.float32)
+    for row in range(n_rows):
+        for p in range(pb):
+            b = il_b[row, p]
+            if 0 <= b < L:
+                cell = row // groups
+                out[0, cell, b] = np.float32(out[0, cell, b] + np.float32(1))
+                out[1, cell, b] = np.float32(out[1, cell, b] + c_b[row, p])
+                out[2, cell, b] = np.float32(out[2, cell, b] + tc_b[row, p])
+    return out
+
+
+@pytest.mark.parametrize("shape,ss", [((17, 12, 20), 4), ((5, 9, 7), 7)])
+def test_blocked_splat_plain_on_cpu_sums_in_ascending_slot_order(shape, ss):
+    """``bls_splat_blocked_plain`` on CPU tensors equals the order-fixed model
+    bit for bit: the yardstick the card's kernel is held to exactly."""
+    sl = 8
+    L = tb._grid_extents(shape, ss, sl)[-1]
+    luma, t, c = _planes(shape, 5)
+    bins = torch.from_numpy((luma / np.float32(sl)).astype(np.int32)[None])
+    il_b = tb.bls_reblock(bins, ss, -1)
+    c_b = tb.bls_reblock(torch.from_numpy(c[None]), ss)
+    tc_b = tb.bls_reblock(torch.from_numpy((t * c)[None]), ss)
+    got = tb.bls_splat_blocked_plain(il_b, c_b, tc_b, L, ss)[0].numpy()
+    want = _ordered_blocked_splat_model(il_b[0].numpy(), c_b[0].numpy(), tc_b[0].numpy(), L, ss)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_blocked_splat_twin_matches_pallas_interpret_on_a_ragged_crop():
+    """The 61 x 47 x 53 crop of the card's check at the refinement's grid
+    (sigma 7 / 5), through the K6 layout."""
+    shape, ss, sl = (61, 47, 53), 7, 5
+    ext = jb._grid_extents(shape, ss, sl)
+    L = ext[-1]
+    _, (il_b, c_b, tc_b) = _blocked_inputs(shape, ss, sl, 6)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jb._splat_pallas(*map(jnp.asarray, (il_b, c_b, tc_b)), L, groups=ss))
+    got = tb.bls_splat_blocked(*(torch.from_numpy(a[None]) for a in (il_b, c_b, tc_b)), L, ss)
+    np.testing.assert_array_equal(got[0, 0].numpy(), want[0])
+    assert got[0, 0].sum() == np.prod(shape)
+    np.testing.assert_allclose(got[0, 1:].numpy(), want[1:], rtol=1e-5, atol=1e-5)

@@ -165,3 +165,25 @@ def test_library_name_tracks_sources(tmp_path, monkeypatch):
     assert first.parent == kernels.BUILD_DIR and first.suffix == ".so"
     (tmp_path / "b.cu").write_text("// edited\n")
     assert kernels.library_path() != first
+
+
+@pytest.mark.parametrize("edit", ["add", "change"])
+def test_library_name_tracks_headers(tmp_path, monkeypatch, edit):
+    """A header shared by the sources (``*.cuh``) is part of the library's
+    name: editing it can never load a library built from the old text."""
+    from vittf_tpu_torch import kernels
+
+    (tmp_path / "a.cu").write_text('#include "core.cuh"\n')
+    if edit == "change":
+        (tmp_path / "core.cuh").write_text("// v1\n")
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    first = kernels.library_path()
+    (tmp_path / "core.cuh").write_text("// v2\n")
+    assert kernels.library_path() != first
+
+
+def test_shipped_headers_are_hashed():
+    from vittf_tpu_torch import kernels
+
+    names = {p.name for p in kernels._sources()}
+    assert {"attention.cu", "attention_core.cuh", "async_copy.cuh", "splat_ordered.cuh"} <= names

@@ -85,3 +85,51 @@ def test_cpu_wrapper_is_plain_and_not_counted():
     assert ts.similarity.launches == before
     with pytest.raises(ValueError, match="unknown similarity impl"):
         ts.fused_similarity_m(feats, qf, m, impl="pallas")
+
+
+# The edges of the card kernel's tiling (128-voxel blocks, 256-annotation
+# chunks, 32-feature slabs): annotations short of a chunk, voxels short of a
+# block, features short of a slab, one class and the 32 the kernel allows.
+EDGE_CASES = [
+    (129, 16, [70]),            # A = 70, C = 1
+    (200, 36, [33, 37]),        # F not a multiple of 32
+    (65, 24, [3] * 32),         # C = 32
+    (300, 16, [130, 129]),      # A = 259: one annotation past a chunk
+]
+
+
+@pytest.mark.parametrize("mean_first", [False, True])
+@pytest.mark.parametrize("N,F,counts", EDGE_CASES)
+def test_plain_matches_xla_at_tile_edges(N, F, counts, mean_first):
+    feats, qf, m = _inputs(N, F, counts, seed=5 + len(counts), q_scale=0.5)
+    # a low threshold, so that the class means of random scores pass it too
+    want = np.asarray(js.similarity_xla(
+        jnp.asarray(feats), jnp.asarray(qf), jnp.asarray(m), threshold=0.01,
+        mean_first=mean_first))
+    got = ts.similarity_plain(
+        torch.from_numpy(feats), torch.from_numpy(qf), torch.from_numpy(m), threshold=0.01,
+        mean_first=mean_first).numpy()
+    assert got.shape == (N, len(counts)) and np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,F,counts", EDGE_CASES[:3])
+def test_plain_matches_pallas_interpret_at_tile_edges(N, F, counts):
+    from jax.experimental.pallas import tpu as pltpu
+
+    feats, qf, m = _inputs(N, F, counts, seed=9 + len(counts), q_scale=0.5)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(js.similarity_pallas(
+            jnp.asarray(feats), jnp.asarray(qf), jnp.asarray(m)))
+    got = ts.similarity_plain(*map(torch.from_numpy, (feats, qf, m))).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("exponent", [2.0, 2.5, 3.0])
+def test_g_below_the_threshold_is_pow_of_zero(exponent):
+    """g(s) = where(s >= t, s, 0) ** e: a score below the threshold gives
+    0 ** e, the value the card's kernel takes once per launch."""
+    s = torch.tensor([[0.2, 0.25, 0.3, -1.0]])
+    got = ts._g(s, 0.25, exponent)
+    want = torch.tensor([[0.0, 0.25 ** exponent, 0.3 ** exponent, 0.0]])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)

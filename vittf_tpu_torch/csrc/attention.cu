@@ -17,47 +17,48 @@
 //
 // What bounds it on the H100: at N = 4097, hd = 64 the work is 4·N²·hd flops
 // per (batch, head), ~206 GFLOP for the (8, 6, 4097, 64) extraction batch,
-// against ~1 MB of K/V per head that stays in L2 across its 65 q tiles. It is
-// bound by arithmetic. This first version runs the two products on the FP32
-// cores (no tensor cores, no TF32, so fp32 parity mode is IEEE fp32): each of
-// 256 threads owns a 4x4 patch of the 64x64 score tile and of the 64x64
-// output tile and reads its operands as float4 from transposed shared-memory
-// tiles, two 16-byte loads per 16 FMAs. wgmma/TMA is later work.
+// against ~1 MB of K/V per head that stays in L2 across its q tiles. It is
+// bound by arithmetic, and beside the two products by one exp2 per score
+// (the SM's special-function unit does 16 a clock).
+//
+// bf16 (the extraction default): attention_core.cuh. Both products are
+// warpgroup MMAs (wgmma) on the tensor cores, the scores and p never leave the
+// registers, the softmax's row sums ride on the tensor cores too, and K/V
+// tiles arrive through a four-slot cp.async ring; a block of two warpgroups
+// owns 128 queries. The scale 1/sqrt(hd)·log2(e) is applied to the
+// fp32 scores, not to q, so q is not rounded a second time.
+//
+// fp32 (parity mode, --compute-dtype float32): the products must be IEEE fp32
+// (TF32 keeps ~3 decimal digits and would break the 2e-5 agreement with the
+// plain twin), so this instantiation stays on the FP32 cores: each of 256
+// threads owns a 4x4 patch of the 64x64 score tile and of the 64x64 output
+// tile and reads its operands as float4 from transposed shared-memory tiles,
+// two 16-byte loads per 16 FMAs. It is not on the default path.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "attention_core.cuh"
 
 namespace {
 
 constexpr int kHd = 64;       // head dim (every DINO / DINOv2 arch)
 constexpr int kBq = 64;       // queries per block
 constexpr int kBk = 64;       // keys per tile
-constexpr int kThreads = 256; // 16 x 16 threads, each a 4x4 patch
+constexpr int kThreads = 256; // fp32 kernel: 16 x 16 threads, each a 4x4 patch
 constexpr int kSmemFloats = 4 * kHd * 64;  // Qt, Kt, Vs, Pt
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// value of p as the PV product sees it: rounded to T (bf16 in speed mode)
-template <typename T> __device__ __forceinline__ float round_p(float p) {
-  return to_f(from_f<T>(p));
-}
-
-// Load a (64 rows x 64 dims) tile of T from global memory into fp32 shared
+// Load a (64 rows x 64 dims) fp32 tile from global memory into shared
 // memory, rows >= n_valid read as 0, each value times `scale`. Threads move
 // 16-byte vectors. Transposed (dst[d][row]): a warp covers 32 consecutive rows
 // at one dim chunk, so its scalar stores hit 32 distinct banks. Row-major
 // (dst[row][d]): consecutive threads take consecutive chunks of a row, so the
 // global reads coalesce and the stores are contiguous float4s.
-template <typename T, bool transpose>
-__device__ __forceinline__ void load_tile(float* dst, const T* base, int64_t row_stride,
+template <bool transpose>
+__device__ __forceinline__ void load_tile(float* dst, const float* base, int64_t row_stride,
                                           int row0, int n_valid, float scale) {
-  constexpr int kVec = 16 / sizeof(T);          // elements per 16-byte vector
+  constexpr int kVec = 4;                       // elements per 16-byte vector
   constexpr int kChunks = kHd / kVec;           // vectors per row
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
@@ -72,33 +73,27 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base, int64_t row
       chunk = idx % kChunks;
     }
     const int grow = row0 + row;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);  // all-zero bits are 0.0 in fp32 and bf16
+    float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
     if (grow < n_valid)
-      raw = *reinterpret_cast<const uint4*>(base + grow * row_stride + chunk * kVec);
-    const T* e = reinterpret_cast<const T*>(&raw);
-    float x[kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) x[j] = to_f(e[j]) * scale;
+      raw = *reinterpret_cast<const float4*>(base + grow * row_stride + chunk * kVec);
+    const float x[kVec] = {raw.x * scale, raw.y * scale, raw.z * scale, raw.w * scale};
     if (transpose) {
 #pragma unroll
       for (int j = 0; j < kVec; ++j) dst[(chunk * kVec + j) * 64 + row] = x[j];
     } else {
-#pragma unroll
-      for (int j = 0; j < kVec; j += 4)
-        *reinterpret_cast<float4*>(dst + row * kHd + chunk * kVec + j) =
-            make_float4(x[j], x[j + 1], x[j + 2], x[j + 3]);
+      *reinterpret_cast<float4*>(dst + row * kHd + chunk * kVec) =
+          make_float4(x[0], x[1], x[2], x[3]);
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int H, int N,
-                     int64_t sqb, int64_t sqh, int64_t sqn,
-                     int64_t skb, int64_t skh, int64_t skn,
-                     int64_t svb, int64_t svh, int64_t svn,
-                     int64_t sob, int64_t soh, int64_t son, float scale_log2) {
+attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, int H, int N,
+                      int64_t sqb, int64_t sqh, int64_t sqn,
+                      int64_t skb, int64_t skh, int64_t skn,
+                      int64_t svb, int64_t svh, int64_t svn,
+                      int64_t sob, int64_t soh, int64_t son, float scale_log2) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Qt = smem;                 // [d][query], pre-scaled into the exp2 domain
@@ -108,12 +103,12 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.x * kBq;
-  const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + h * skh;
-  const T* vb = v + b * svb + h * svh;
+  const float* qb = q + b * sqb + h * sqh;
+  const float* kb = k + b * skb + h * skh;
+  const float* vb = v + b * svb + h * svh;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;  // ty: 4 query rows, tx: 4 cols
 
-  load_tile<T, true>(Qt, qb, sqn, q0, N, scale_log2);
+  load_tile<true>(Qt, qb, sqn, q0, N, scale_log2);
 
   float m[4], l[4], acc[4][4];
 #pragma unroll
@@ -126,8 +121,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < N; k0 += kBk) {
     __syncthreads();  // previous tile's Kt/Vs/Pt reads are done
-    load_tile<T, true>(Kt, kb, skn, k0, N, 1.f);
-    load_tile<T, false>(Vs, vb, svn, k0, N, 1.f);
+    load_tile<true>(Kt, kb, skn, k0, N, 1.f);
+    load_tile<false>(Vs, vb, svn, k0, N, 1.f);
     __syncthreads();
 
     // s = (q·scale·log2e)·k for rows ty*4.., keys tx*4..
@@ -164,7 +159,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = round_p<T>(exp2f(s[i][j] - m_new));
+        s[i][j] = exp2f(s[i][j] - m_new);
         rs += s[i][j];
       }
 #pragma unroll
@@ -194,28 +189,55 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + b * sob + h * soh;
+  float* ob = o + b * sob + h * soh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= N) continue;
     const float inv = 1.f / l[i];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) ob[row * son + tx * 4 + j] = from_f<T>(acc[i][j] * inv);
+    for (int j = 0; j < 4; ++j) ob[row * son + tx * 4 + j] = acc[i][j] * inv;
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
-           const int64_t* st, float scale_log2, cudaStream_t stream) {
+int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                const int64_t* st, float scale_log2, cudaStream_t stream) {
   const size_t smem = kSmemFloats * sizeof(float);
-  cudaFuncSetAttribute(attention_fwd_kernel<T>,
+  cudaFuncSetAttribute(attention_fp32_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid((N + kBq - 1) / kBq, B * H);
-  attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, N, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+  attention_fp32_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, N, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// bf16: attention_core's block (two warpgroups, 128 queries), two blocks an SM:
+// 128 registers a thread
+__global__ void __launch_bounds__(attention_core::kThreads, 2)
+attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
+                      int N, int64_t sqb, int64_t sqh, int64_t sqn, int64_t skb, int64_t skh,
+                      int64_t skn, int64_t svb, int64_t svh, int64_t svn, int64_t sob,
+                      int64_t soh, int64_t son, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_bf16[];
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  attention_core::attention_block<true, false>(
+      q + b * sqb + h * sqh, k + b * skb + h * skh, v + b * svb + h * svh,
+      o + b * sob + h * soh, sqn, skn, svn, son, blockIdx.x * attention_core::kBlockRows, N, N,
+      scale_log2, smem_bf16);
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                const int64_t* st, float scale_log2, cudaStream_t stream) {
+  constexpr int smem = attention_core::kSmemBytes, rows = attention_core::kBlockRows;
+  cudaFuncSetAttribute(attention_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  dim3 grid((N + rows - 1) / rows, B * H);
+  attention_bf16_kernel<<<grid, attention_core::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, N, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -230,7 +252,7 @@ extern "C" int vittf_attention_fwd(const void* q, const void* k, const void* v, 
                                    void* stream) {
   if (hd != kHd) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, o, B, H, N, strides, scale_log2, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, o, B, H, N, strides, scale_log2, s);
+  if (dtype == 0) return launch_fp32(q, k, v, o, B, H, N, strides, scale_log2, s);
+  if (dtype == 1) return launch_bf16(q, k, v, o, B, H, N, strides, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,14 +12,18 @@
 // K4 splat. Replaces vittf_tpu/ops/bilateral.py::_splat_fused3d_pallas.
 //   out[b, 0, cell, bin] = #voxels, out[b, 1, ...] = sum c, out[b, 2, ...] = sum t*c.
 //   One block per (cy, cz, b) slab of ss x ss x X voxels, as the Pallas grid
-//   walks (cz, cy). The block keeps the slab's (3, NCX, L) histogram in shared
-//   memory (11.9 KB at a 128^3 crop with ss 7, sigma_luma 5; 46 KB at 512^3),
-//   adds every voxel with shared-memory atomics and writes the histogram out
-//   once, so device memory sees one read of each input plane and one write of
-//   the lattice. Voxels past Z/Y (the ragged last cell) are skipped by index,
-//   not padded. Bound: the three input planes, 12 bytes per voxel.
-//   The counts are exact; the fp32 sums depend on the order in which the
-//   atomics land and so may differ from run to run in the last bits.
+//   walks (cz, cy); inside it a warp per spatial cell cx. The warp stages the
+//   cell's voxels 32 at a time in (dz, dy, dx) order, which is ascending flat
+//   voxel index within the cell, and every lane adds them, in that order, into
+//   the sums of the luma bins it owns, which it keeps in registers
+//   (splat_ordered.cuh), then writes the cell's vertices out. Device memory
+//   sees one read of each input plane and one write of the lattice. Voxels
+//   past Z/Y/X (the ragged last cell) are skipped by index, not padded.
+//   No atomics: every vertex is summed in ascending voxel order, as
+//   bls_splat_plain sums it on CPU tensors, so the result equals that one bit
+//   for bit and a launch equals its repeat. The price: the 32 voxels of a step
+//   are walked one after the other, and a cell's reads are runs of ss floats.
+//   L <= 256. Bound: the three input planes, 12 bytes per voxel.
 // K5 slice. Replaces vittf_tpu/ops/bilateral.py::_slice_fused3d_pallas.
 //   out[b, z, y, x] = grid[b, cell, bin]: one thread per voxel, one luma read,
 //   one gather from the lattice (a few MB, resident in the 50 MB L2) and one
@@ -36,45 +40,46 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "splat_ordered.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSmemBytes = 232448;  // what one Hopper block may use
-constexpr int kDefaultSmemBytes = 49152;
+constexpr int kWarps = kThreads / 32;
 
+template <int kU>  // luma bins per lane: L <= 32*kU
 __global__ void __launch_bounds__(kThreads)
 bls_splat_kernel(const float* __restrict__ luma, const float* __restrict__ target,
                  const float* __restrict__ conf, float* __restrict__ out, int Z, int Y,
                  int X, int ss, float sigma_luma, int NCZ, int NCY, int NCX, int L) {
-  extern __shared__ float hist[];  // [3][NCX][L]
+  __shared__ splat_ordered::Staged stages[kWarps][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cy = blockIdx.x, cz = blockIdx.y, b = blockIdx.z;
-  const int plane = NCX * L;
-  for (int i = threadIdx.x; i < 3 * plane; i += kThreads) hist[i] = 0.f;
-  __syncthreads();
-
   const int z0 = cz * ss, y0 = cy * ss;
   const int nz = min(ss, Z - z0), ny = min(ss, Y - y0);
   const int64_t base = (int64_t)b * Z * Y * X;
-  const int n = nz * ny * X;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int row = i / X, x = i - row * X;
-    const int dz = row / ny, dy = row - dz * ny;
-    const int64_t v = base + ((int64_t)(z0 + dz) * Y + (y0 + dy)) * X + x;
-    const int bin = (int)(luma[v] / sigma_luma);
-    if (bin < 0 || bin >= L) continue;  // luma outside [0, 255]: no vertex
-    const float c = conf[v];
-    const int h = (x / ss) * L + bin;
-    atomicAdd(&hist[h], 1.f);
-    atomicAdd(&hist[plane + h], c);
-    atomicAdd(&hist[2 * plane + h], __fmul_rn(target[v], c));
-  }
-  __syncthreads();
-
-  const int64_t n_cells = (int64_t)NCZ * NCY * NCX;
+  const int64_t plane = (int64_t)NCZ * NCY * NCX * L;
   const int64_t cell0 = ((int64_t)cz * NCY + cy) * NCX;
-  for (int i = threadIdx.x; i < 3 * plane; i += kThreads) {
-    const int k = i / plane, j = i - k * plane;
-    out[((int64_t)b * 3 + k) * n_cells * L + cell0 * L + j] = hist[i];
+  // a warp per spatial cell of the slab; whole warps loop, no block barrier
+  for (int cx = warp; cx < NCX; cx += kWarps) {
+    splat_ordered::Sums<kU> sums;
+    sums.clear();
+    const int x0 = cx * ss, nx = min(ss, X - x0);
+    const int n = nz * ny * nx;  // the cell's voxels, (dz, dy, dx): ascending flat index
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const int i = i0 + lane;
+      if (i < n) {
+        const int row = i / nx, dx = i - row * nx;
+        const int dz = row / ny, dy = row - dz * ny;
+        const int64_t v = base + ((int64_t)(z0 + dz) * Y + (y0 + dy)) * X + x0 + dx;
+        const float c = conf[v];
+        // luma outside [0, 255] has no vertex
+        stages[warp][lane] = splat_ordered::staged((int)(luma[v] / sigma_luma), L, c,
+                                                   __fmul_rn(target[v], c));
+      }
+      sums.add(stages[warp], min(32, n - i0), lane);
+    }
+    sums.store(out + (int64_t)b * 3 * plane + (cell0 + cx) * L, plane, L, lane);
   }
 }
 
@@ -139,18 +144,15 @@ extern "C" int vittf_bls_splat(const float* luma, const float* target, const flo
   if (B < 1 || B > 65535 || Z < 1 || Y < 1 || X < 1 || ss < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
   const int NCZ = cells(Z, ss), NCY = cells(Y, ss), NCX = cells(X, ss);
-  const int64_t smem = 3LL * NCX * L * sizeof(float);
-  if (smem > kMaxSmemBytes || NCZ > 65535 || (int64_t)ss * ss * X > INT32_MAX)
+  if (L > splat_ordered::kMaxBins || NCZ > 65535 || (int64_t)ss * ss * ss > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  if (smem > kDefaultSmemBytes) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bls_splat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const dim3 grid(NCY, NCZ, B);
-  bls_splat_kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
-      luma, target, conf, out, Z, Y, X, ss, sigma_luma, NCZ, NCY, NCX, L);
-  return (int)cudaGetLastError();
+  return splat_ordered::dispatch_bins(L, [&](auto u) {
+    constexpr int kU = decltype(u)::value;
+    bls_splat_kernel<kU><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        luma, target, conf, out, Z, Y, X, ss, sigma_luma, NCZ, NCY, NCX, L);
+    return (int)cudaGetLastError();
+  });
 }
 
 // luma and out (B, Z, Y, X), grid (B, NCZ*NCY*NCX, L): contiguous fp32.

@@ -29,10 +29,13 @@
 // K7a blocked splat. Replaces vittf_tpu/ops/bilateral.py::_splat_pallas.
 //   out[b, 0, cell, l] = #pixels of the cell in bin l, out[b, 1] = sum c,
 //   out[b, 2] = sum t*c. One warp per cell: its G*PB pixels are contiguous, the
-//   warp adds them into its own (3, L) shared-memory histogram with shared
-//   atomics and writes it once. A bin outside [0, L) adds nothing. Counts are
-//   exact; the fp32 sums depend on the order in which the atomics land. Bound:
-//   the three blocked planes, 12 bytes per pixel slot, plus the lattice write.
+//   warp stages them 32 at a time and every lane adds them, in ascending slot
+//   order, into the sums of the bins it owns, which it keeps in registers
+//   (splat_ordered.cuh). A bin outside [0, L) adds nothing. No atomics: the
+//   sums are those of bls_splat_blocked_plain on CPU tensors bit for bit, and a
+//   launch equals its repeat. The price is a serial walk of the 32 staged
+//   pixels per step where atomics would run 32 wide. L <= 256. Bound: the
+//   three blocked planes, 12 bytes per pixel slot, plus the lattice write.
 // K7b blocked slice. Replaces vittf_tpu/ops/bilateral.py::_slice_pallas.
 //   out[b, row, p] = yl[b, row / G, il[b, row, p]], 0 where the bin is outside
 //   [0, L). One thread per pixel slot: one coalesced bin read, one gather from
@@ -40,6 +43,8 @@
 //   8 bytes per pixel slot.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "splat_ordered.cuh"
 
 namespace {
 
@@ -105,30 +110,26 @@ bls_unreblock_kernel(const uint32_t* __restrict__ xb, uint32_t* __restrict__ out
   }
 }
 
+template <int kU>  // luma bins per lane: L <= 32*kU
 __global__ void __launch_bounds__(kThreads)
 bls_splat_blocked_kernel(const int* __restrict__ il, const float* __restrict__ c,
                          const float* __restrict__ tc, float* __restrict__ out, int n_cells,
                          int cell_pixels, int L) {
-  extern __shared__ float hists[];  // [kWarps][3][L]
+  __shared__ splat_ordered::Staged stages[kWarps][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cell = blockIdx.x * kWarps + warp, b = blockIdx.y;
   if (cell >= n_cells) return;  // whole warps leave; no block-wide barrier below
-  float* hist = hists + warp * 3 * L;
-  for (int i = lane; i < 3 * L; i += 32) hist[i] = 0.f;
-  __syncwarp();
+  splat_ordered::Sums<kU> sums;
+  sums.clear();
   const int64_t base = ((int64_t)b * n_cells + cell) * cell_pixels;
-  for (int i = lane; i < cell_pixels; i += 32) {
-    const int bin = il[base + i];
-    if (bin < 0 || bin >= L) continue;
-    atomicAdd(&hist[bin], 1.f);
-    atomicAdd(&hist[L + bin], c[base + i]);
-    atomicAdd(&hist[2 * L + bin], tc[base + i]);
+  for (int i0 = 0; i0 < cell_pixels; i0 += 32) {
+    const int i = i0 + lane;
+    if (i < cell_pixels)
+      stages[warp][lane] = splat_ordered::staged(il[base + i], L, c[base + i], tc[base + i]);
+    sums.add(stages[warp], min(32, cell_pixels - i0), lane);
   }
-  __syncwarp();
-  for (int i = lane; i < 3 * L; i += 32) {
-    const int k = i / L, l = i - k * L;
-    out[(((int64_t)b * 3 + k) * n_cells + cell) * L + l] = hist[i];
-  }
+  const int64_t plane = (int64_t)n_cells * L;
+  sums.store(out + (int64_t)b * 3 * plane + (int64_t)cell * L, plane, L, lane);
 }
 
 // The per-class slot index fits 32 bits (the host checks), so the divisions
@@ -201,19 +202,16 @@ extern "C" int vittf_bls_unreblock(const void* xb, void* out, int B, int Z, int 
 extern "C" int vittf_bls_splat_blocked(const int* il, const float* c, const float* tc,
                                        float* out, int B, int n_cells, int cell_pixels, int L,
                                        void* stream) {
-  if (B < 1 || B > 65535 || n_cells < 1 || cell_pixels < 1 || L < 1)
+  if (B < 1 || B > 65535 || n_cells < 1 || cell_pixels < 1 || L < 1 ||
+      L > splat_ordered::kMaxBins)
     return (int)cudaErrorInvalidValue;
-  const int64_t smem = (int64_t)kWarps * 3 * L * sizeof(float);
-  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  if (smem > kDefaultSmemBytes) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bls_splat_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const dim3 grid((n_cells + kWarps - 1) / kWarps, B);
-  bls_splat_blocked_kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
-      il, c, tc, out, n_cells, cell_pixels, L);
-  return (int)cudaGetLastError();
+  return splat_ordered::dispatch_bins(L, [&](auto u) {
+    constexpr int kU = decltype(u)::value;
+    bls_splat_blocked_kernel<kU><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        il, c, tc, out, n_cells, cell_pixels, L);
+    return (int)cudaGetLastError();
+  });
 }
 
 // il and out (B, n_cells*G, PB), yl (B, n_cells, L): contiguous.

@@ -124,12 +124,32 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _run_nvcc(cmd: list[str]) -> None:
+def _run_nvcc(cmd: list[str]) -> str:
+    """Run one nvcc command; returns what it wrote to stderr, raises on failure."""
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
         )
+    return res.stderr
+
+
+def ptxas_report() -> dict[str, str]:
+    """Per source, what ``nvcc -Xptxas -v`` prints: each kernel's registers,
+    shared memory and spills. Compiles every source once more (objects are
+    discarded); the loaded library is not touched."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [str(BUILD_DIR / f"ptxas.{os.getpid()}.{s.stem}.o") for s in srcs]
+    try:
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            logs = list(pool.map(_run_nvcc, ([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(s),
+                                              "-o", o] for s, o in zip(srcs, objs))))
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+    return {s.name: log for s, log in zip(srcs, logs)}
 
 
 def check(code: int, name: str) -> None:

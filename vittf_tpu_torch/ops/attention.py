@@ -5,7 +5,9 @@ Port of ``vittf_tpu/ops/attention.py``. The ViT slice batches put ~4k patch
 tokens per slice through every attention block, the FLOPs hot spot of
 feature extraction. On CUDA tensors ``attention`` launches
 ``csrc/attention.cu`` (online-softmax forward, the (N x N) score matrix never
-reaches device memory); on CPU tensors it runs ``attention_plain``, the
+reaches device memory: in bf16 both products run on the tensor cores with
+the scores held in registers, ``csrc/attention_core.cuh``; fp32 stays IEEE
+fp32 on the FP32 cores); on CPU tensors it runs ``attention_plain``, the
 ``_attention_xla`` math of the JAX package.
 """
 from __future__ import annotations

@@ -46,6 +46,7 @@ BS_PARAMS_DEFAULT = {  # reference bilateral_solver3d.py:162-167
 }
 _BLUR_DIM = 6  # the 3D reference hashes 6-D coords; central factor is 2·dim
 _BLUR_DIM_2D = 5  # 2D reference: (x, y, luma, u, v)
+MAX_SPLAT_BINS = 256  # the splat kernels keep a cell's luma bins in a warp's registers, 8 a lane
 
 
 def _cell_extents(shape, sigma_spatial):
@@ -120,7 +121,10 @@ def bls_splat_plain(luma, target, confidence, sigma_spatial, sigma_luma):
 
 def bls_splat(luma, target, confidence, sigma_spatial, sigma_luma):
     """``bls_splat_plain``'s result; the K4 kernel for CUDA tensors (fp32,
-    contiguous, luma in [0, 255])."""
+    contiguous, luma in [0, 255]). The kernel sums every vertex in ascending
+    voxel order without atomics: it equals the plain twin run on CPU tensors
+    bit for bit, and its own repeat (the twin's ``index_add_`` is atomic on a
+    CUDA tensor and is not repeatable there)."""
     if luma.device.type == "cpu":
         return bls_splat_plain(luma, target, confidence, sigma_spatial, sigma_luma)
     if luma.device.type != "cuda":
@@ -132,6 +136,8 @@ def bls_splat(luma, target, confidence, sigma_spatial, sigma_luma):
     Z, Y, X = _as_rank3(shape, "bls_splat")
     ext = _grid_extents(shape, sigma_spatial, sigma_luma)
     n_cells, L = int(np.prod(ext[:-1])), ext[-1]
+    if L > MAX_SPLAT_BINS:
+        raise ValueError(f"bls_splat kernel takes at most {MAX_SPLAT_BINS} luma bins, got {L}")
     out = torch.empty((B, 3, n_cells, L), dtype=torch.float32, device=luma.device)
     _launch("vittf_bls_splat", luma.device, luma.data_ptr(), target.data_ptr(),
             confidence.data_ptr(), out.data_ptr(), B, Z, Y, X, int(sigma_spatial),
@@ -342,7 +348,9 @@ def bls_splat_blocked_plain(il_b, c_b, tc_b, L: int, groups: int = 1) -> torch.T
 
 def bls_splat_blocked(il_b, c_b, tc_b, L: int, groups: int = 1) -> torch.Tensor:
     """``bls_splat_blocked_plain``'s result; the K7a kernel for CUDA tensors
-    (contiguous int32 bins, fp32 planes)."""
+    (contiguous int32 bins, fp32 planes). Like ``bls_splat`` the kernel sums
+    in ascending slot order without atomics and equals the plain twin run on
+    CPU tensors bit for bit."""
     if il_b.device.type == "cpu":
         return bls_splat_blocked_plain(il_b, c_b, tc_b, L, groups)
     if il_b.device.type != "cuda":
@@ -352,6 +360,8 @@ def bls_splat_blocked(il_b, c_b, tc_b, L: int, groups: int = 1) -> torch.Tensor:
     if il_b.ndim != 3 or c_b.shape != il_b.shape or tc_b.shape != il_b.shape \
             or c_b.device != il_b.device or il_b.shape[1] % groups:
         raise ValueError("bls_splat_blocked: bins and planes differ, or rows are not cells·G")
+    if L > MAX_SPLAT_BINS:
+        raise ValueError(f"bls_splat_blocked kernel takes at most {MAX_SPLAT_BINS} bins, got {L}")
     B, n_rows, PB = il_b.shape
     n_cells = n_rows // groups
     out = torch.empty((B, 3, n_cells, L), dtype=torch.float32, device=il_b.device)

@@ -8,8 +8,11 @@ Port of ``vittf_tpu/ops/similarity.py``:
 with ``g(s) = where(s ≥ τ, s, 0) ** exponent`` and ``M`` holding 1/A_c in
 class c's annotation rows. On CUDA tensors ``similarity`` launches
 ``csrc/similarity.cu``, which keeps the (N, ΣA) score matrix out of device
-memory; on CPU tensors it runs ``similarity_plain`` (the ``similarity_xla``
-math). Both are IEEE fp32 throughout: no TF32.
+memory and sums without atomics (a launch equals its repeat); on CPU tensors
+it runs ``similarity_plain`` (the ``similarity_xla`` math). Both are IEEE
+fp32 throughout: no TF32. The kernel takes any N and A and any F that is a
+multiple of 4 (it pads its tiles with zeros itself), and up to
+``MAX_CLASSES`` classes.
 """
 from __future__ import annotations
 
