@@ -37,16 +37,20 @@ device SVM predict) and the tools path. Phases:
    bins), and a 2-D solve through the kernels vs plain;
 5. fused block kernel vs plain at (8, 4097, 384) bf16, held on loud weights
    (``loud_params``: every term reaches the output; the branch out − x is
-   compared) with and without the softmax row max and with bf16 scores,
-   each of the 11 loud blocks, and a (2, 640 + 37, 384) case with
-   ``n_valid=640``; timed on ViT-S/8 block 0, and the 11-block ViT-S/8 stack;
-5a. chained GEMM kernel vs plain at (2048, 1536) x (1536, 1536), chain 1
+   compared at 0.02·max|branch|) without the softmax row max and, on a block
+   whose k bias shifts the scores, with it, each result equal to its repeat;
+   a block whose every p underflows (row sum 0); each of the 11 loud blocks;
+   3 x N tokens at N = 64, 65, 127, 129 and widths 128, 512 and 768; a
+   (2, 640 + 37, 384) case with ``n_valid=640``; timed on ViT-S/8 block 0
+   (the block, and each of its five launches alone), and the 11-block stack;
+5a. chained GEMM kernel vs plain at (2048, 1536) x (1536, 1536), chain 1, 2
    and 32, in its three modes (bf16: one bf16 step at chain 1, 0.03·max|ref|
-   at chain 32; int8+requant and int8+shift bit-equal, also on operands with
-   a zero row and products that scale to exact .5 ties), timed beside 32
-   ``torch.matmul`` / ``torch._int_mm`` calls; then the probe's entry point
-   ``scripts.bench_int8_gemm`` at its defaults (63 launches), its printed
-   lines passed through;
+   after; int8+requant and int8+shift bit-equal, also on operands with a zero
+   row and products that scale to exact .5 ties), each equal to its repeat,
+   timed beside 32 ``torch.matmul`` / ``torch._int_mm`` calls; rows 1, 127,
+   129 at dim 128, 384 and 1536, and a dim the kernel refuses; then the probe's
+   entry point ``scripts.bench_int8_gemm`` at its defaults (63 launches), its
+   printed lines passed through;
 5b. baselines path: ``compose_features`` on a 256³ phantom,
    ``sample_train_data``, then ``svm_predict_device`` over all 16.8 M voxels
    with a seeded stand-in classifier (12 000 support vectors, 6 classes),
@@ -161,7 +165,13 @@ from vittf_tpu_torch.ops.bilateral import (
 )
 from vittf_tpu_torch.ops.chain_gemm import MODES as CHAIN_MODES
 from vittf_tpu_torch.ops.chain_gemm import chain_gemm, chain_gemm_plain, wrap_int8
-from vittf_tpu_torch.ops.fused_block import fused_block, fused_block_plain
+from vittf_tpu_torch.ops.fused_block import (
+    _block_weights,
+    fused_block,
+    fused_block_plain,
+    kernel_buffers,
+    launch_kernel,
+)
 from vittf_tpu_torch.ops.similarity import class_mean_matrix, similarity, similarity_plain
 from vittf_tpu_torch.pipeline.annotations import annotations_from_labels
 from vittf_tpu_torch.pipeline.features import ExtractConfig, extract_features
@@ -646,13 +656,50 @@ def check_branch(name, got, want, x, frac):
     return err, lim
 
 
+K3_LAUNCHES = ("LN1+qkv", "attention", "proj+residual", "LN2+fc1+GELU", "fc2+residual")
+
+
+def random_block(gen, D, Hd):
+    """Hub-named tensors of one block of width ``D`` with LayerScale, every
+    term loud (as ``loud_params``): unit-size products, biases and LayerNorm
+    shifts N(0, 0.5²), gains 1 + N(0, 0.5²), gammas U(0.35, 1.05)."""
+    def normal(*shape, std=0.5):
+        return std * torch.randn(shape, generator=gen)
+
+    blk = {"attn.qkv.weight": normal(3 * D, D, std=D**-0.5), "attn.qkv.bias": normal(3 * D),
+           "attn.proj.weight": normal(D, D, std=D**-0.5), "attn.proj.bias": normal(D),
+           "mlp.fc1.weight": normal(Hd, D, std=D**-0.5), "mlp.fc1.bias": normal(Hd),
+           "mlp.fc2.weight": normal(D, Hd, std=Hd**-0.5), "mlp.fc2.bias": normal(D)}
+    for n in ("norm1", "norm2"):
+        blk[n + ".weight"], blk[n + ".bias"] = 1 + normal(D), normal(D)
+    for n in ("ls1.gamma", "ls2.gamma"):
+        blk[n] = 0.35 + 0.7 * torch.rand(D, generator=gen)
+    return {k: v.to("cuda", torch.bfloat16) for k, v in blk.items()}
+
+
+def fused_launch_ms(x, blk, H, softmax_max):
+    """ms of each of K3's five launches run alone, on buffers that a whole
+    run of the block has filled."""
+    w = _block_weights(blk, H, x.dtype)
+    bufs = kernel_buffers(x, w)
+    launch_kernel(x, w, bufs, x.shape[1], H, softmax_max)
+    def ten(mask):  # ten launches an event pair: the host's share of one launch stays out
+        for _ in range(10):
+            launch_kernel(x, w, bufs, x.shape[1], H, softmax_max, mask)
+
+    return [cuda_ms(lambda m=1 << i: ten(m)) / 10 for i in range(len(K3_LAUNCHES))]
+
+
 def phase_fused_block(gen):
     """K3 against its plain twin at the main path's slice batch. Timed on
-    ViT-S/8 block 0 (``init_vit_params`` seed (0, 0)); held on the loud
-    blocks of ``loud_params``, comparing the branch (out − x), so that a
-    wrong softmax, bias, LayerNorm affine, LayerScale or a padded-key leak
-    shows. Limits: 0.02·max|branch|, 0.05 with bf16 scores (the on-chip
-    contract of tests_tpu/test_kernels_tpu.py, here on the branch)."""
+    ViT-S/8 block 0 (``init_vit_params`` seed (0, 0)), the block and each of
+    its five launches alone; held on the loud blocks of ``loud_params``,
+    comparing the branch (out − x), so that a wrong softmax, bias, LayerNorm
+    affine, LayerScale or a padded-key leak shows. Limit: 0.02·max|branch|
+    (the on-chip contract of tests_tpu/test_kernels_tpu.py, here on the
+    branch), everywhere: with and without the row max, at token counts on
+    both sides of the kernels' tile edges, at widths 128, 512 and 768, and
+    where every p underflows."""
     cfg = resolve_model("vits8")
     H = cfg.num_heads
     model = VisionTransformer.from_state_dict(cfg, init_vit_params(cfg, (0, 0)))
@@ -665,28 +712,47 @@ def phase_fused_block(gen):
     shifted = {k: v.detach() for k, v in loud[0].named_parameters()}
     shifted["attn.qkv.bias"] = shifted["attn.qkv.bias"].clone()
     shifted["attn.qkv.bias"][384:768] *= K_SHIFT
+    # the underflow case: q = −8·1 and k = 8·1 whatever the token, so every
+    # score is −8·8·64·(1/8)·log2(e) = −739 and exp2 gives 0: without the row
+    # max the row sum is 0 and the attention output must be 0, not 0·inf
+    under = {k: v.detach().clone() for k, v in loud[0].named_parameters()}
+    under["attn.qkv.weight"][:768] = 0
+    under["attn.qkv.bias"][:384], under["attn.qkv.bias"][384:768] = -8.0, 8.0
     x = (0.5 * torch.randn(BLOCK_SHAPE, generator=gen)).to("cuda", torch.bfloat16)
     xl = (0.1 * torch.randn(BLOCK_SHAPE, generator=gen)).to("cuda", torch.bfloat16)
     if bool(torch.isfinite(fused_block_plain(xl, shifted, H, softmax_max=False)).all()):
         raise AssertionError("the shifted block does not overflow without the row max")
     out = None
-    for softmax_max, score_dtype in ((False, "fp32"), (True, "fp32"), (False, "bf16")):
-        kw = dict(softmax_max=softmax_max, score_dtype=score_dtype)
+    for softmax_max in (False, True):
         blk = shifted if softmax_max else loud[0]
-        err, lim = check_branch(f"fused_block {kw}", fused_block(xl, blk, H, **kw),
-                                fused_block_plain(xl, blk, H, **kw), xl,
-                                0.05 if score_dtype == "bf16" else 0.02)
-        ms = cuda_ms(lambda: fused_block(x, timed[0], H, **kw))
-        plain_ms = cuda_ms(lambda: fused_block_plain(x, timed[0], H, **kw))
-        print(f"fused_block {BLOCK_SHAPE} bf16 softmax_max={softmax_max} score={score_dtype}: "
-              f"max_abs_err {err} (limit {lim}, {'shifted ' if softmax_max else ''}loud block 0) "
-              f"kernel {ms} ms plain {plain_ms} ms (ViT-S/8 block 0)")
+        got = fused_block(xl, blk, H, softmax_max=softmax_max)
+        err, lim = check_branch(f"fused_block softmax_max={softmax_max}", got,
+                                fused_block_plain(xl, blk, H, softmax_max=softmax_max), xl, 0.02)
+        assert_equal(f"fused_block softmax_max={softmax_max}, repeat",
+                     fused_block(xl, blk, H, softmax_max=softmax_max), got)
+        def four():  # four calls an event pair: device time, as a stack of blocks runs it
+            for _ in range(4):
+                fused_block(x, timed[0], H, softmax_max=softmax_max)
+
+        ms = cuda_ms(four) / 4
+        plain_ms = cuda_ms(lambda: fused_block_plain(x, timed[0], H, softmax_max=softmax_max))
+        each = fused_launch_ms(x, timed[0], H, softmax_max)
+        print(f"fused_block {BLOCK_SHAPE} bf16 softmax_max={softmax_max}: "
+              f"max_abs_err {err} (limit {lim}, share {err / lim}, "
+              f"{'shifted ' if softmax_max else ''}loud block 0), equal to its repeat; "
+              f"kernel {ms} ms plain {plain_ms} ms (ViT-S/8 block 0); launches alone "
+              f"{dict(zip(K3_LAUNCHES, each))} ms, sum {sum(each)}")
         # four linear products (24·D² flops per token) and the attention
         # (4·N²·D per slice); bytes: tokens in and out, the weights once
         Bb, Nb, Db = BLOCK_SHAPE
         out = out or kernel_entry(
             err, ms, plain_ms, nbytes=2 * (2 * x.numel() + 12 * Db * Db),
             ops=Bb * Nb * 24 * Db * Db + 4 * Bb * Nb * Nb * Db, peak="bf16")
+    got = fused_block(xl, under, H, softmax_max=False)
+    err, lim = check_branch("fused_block, every p underflows", got,
+                            fused_block_plain(xl, under, H, softmax_max=False), xl, 0.02)
+    print(f"fused_block {BLOCK_SHAPE} softmax_max=False, every score -739 (row sum 0): "
+          f"max_abs_err {err} (limit {lim})")
     # each loud block on the same input: one step each, since bf16 rounding
     # compounds over a stack
     errs = [check_branch(f"fused_block loud block {i}", fused_block(xl, b, H, softmax_max=False),
@@ -694,6 +760,24 @@ def phase_fused_block(gen):
             for i, b in enumerate(loud)]
     print(f"fused_block loud blocks 0-10, softmax_max=False: max_abs_err / limit "
           f"{[round(e / lim, 4) for e, lim in errs]}")
+    # token counts on both sides of the tile edges (a last key tile of one
+    # key, a last row block of one row; 3·N is no multiple of 128), and the
+    # widths whose column tiles are 128 wide or whose rows fill the resident
+    # block (D = 128: qkv in 192-wide tiles, the rest in 128; D = 512), and a
+    # width whose rows no longer fit it (D = 768: every linear streamed)
+    shares = {}
+    for D, n_tokens in ((384, (64, 65, 127, 129)), (128, (129,)), (512, (129,)), (768, (129,))):
+        blk = loud[0] if D == 384 else random_block(gen, D, 4 * D)
+        blk_max = shifted if D == 384 else blk
+        for n in n_tokens:
+            xs = (0.1 * torch.randn((3, n, D), generator=gen)).to("cuda", torch.bfloat16)
+            for softmax_max, b in ((False, blk), (True, blk_max)):
+                e, lim = check_branch(
+                    f"fused_block (3, {n}, {D}) softmax_max={softmax_max}",
+                    fused_block(xs, b, D // 64, softmax_max=softmax_max),
+                    fused_block_plain(xs, b, D // 64, softmax_max=softmax_max), xs, 0.02)
+                shares[(D, n, softmax_max)] = round(e / lim, 4)
+    print(f"fused_block (3, N, D) loud blocks, (D, N, softmax_max): max_abs_err / limit {shares}")
 
     def stack(fn):
         y = x
@@ -1392,15 +1476,34 @@ def k9_bf16_drift(x, w, chain):
     return (a.float() - b.float()).abs().max().item(), a.float().abs().max().item()
 
 
-def phase_chain_gemm():
-    """K9 against its plain version at the probe's shapes, chain 1 and 32,
-    three modes. The int8 modes are bit-defined and must be equal, on the
-    probe's operands and on ``k9_hard_operands``. bf16: one bf16 step at
-    chain 1 (|delta| <= 2^-7·|ref| + 1e-3); at chain 32 K9_BF16_LIMIT·max|ref|,
-    which must be no more than 3x the largest share by which two fp32
-    accumulation orders of the plain version move apart over the chain
-    (``k9_bf16_drift``), read here on the card at the probe's shape and on
-    CPU tensors at 256 and 512 rows."""
+def k9_check(x, w, chain, mode, name):
+    """One K9 call against the plain version: the int8 modes equal, bf16 one
+    bf16 step at chain 1 and K9_BF16_LIMIT·max|ref| after that. Returns the
+    largest deviation."""
+    got, want = chain_gemm(x, w, chain, mode), chain_gemm_plain(x, w, chain, mode)
+    torch.cuda.synchronize()
+    if mode != "bf16":
+        assert_equal(name, got, want)
+        return 0.0
+    if chain == 1:
+        return check_close(name, got, want, 2.0**-7, 1e-3)
+    return check_rel(name, got, want, K9_BF16_LIMIT)
+
+
+def phase_chain_gemm(gen=None):
+    """K9 against its plain version at the probe's shapes, chain 1, 2 and 32
+    (both ping-pong parities), three modes. The int8 modes are bit-defined and
+    must be equal, on the probe's operands and on ``k9_hard_operands``. bf16:
+    one bf16 step at chain 1 (|delta| <= 2^-7·|ref| + 1e-3); at chain 32
+    K9_BF16_LIMIT·max|ref|, which must be no more than 3x the largest share by
+    which two fp32 accumulation orders of the plain version move apart over
+    the chain (``k9_bf16_drift``), read here on the card at the probe's shape
+    and on CPU tensors at 256 and 512 rows. Then the edges: 1, 127 and 129
+    rows (a row block of one row) at dim 128, 384 and the probe's (a cluster
+    of one block of 128 columns, of two and of eight of 192), and a dim the
+    kernel refuses. ``gen`` is unused (the probe seeds its own operands); it
+    is the phases' common signature, by which
+    ``scripts/kernel_variants.py`` calls them."""
     inputs = bench_int8_gemm.make_inputs(K9_ROWS, K9_DIM, "cuda")
     hard = k9_hard_operands(*inputs["int8+requant"])
     shares = []
@@ -1417,24 +1520,17 @@ def phase_chain_gemm():
     for mode in CHAIN_MODES:
         x, w = inputs[mode]
         errs = {}
-        for chain in (1, K9_CHAIN):
-            got, want = chain_gemm(x, w, chain, mode), chain_gemm_plain(x, w, chain, mode)
-            torch.cuda.synchronize()
+        for chain in (1, 2, K9_CHAIN):
+            errs[chain] = k9_check(x, w, chain, mode, f"chain_gemm {mode} chain {chain}")
             if mode != "bf16":
-                assert_equal(f"chain_gemm {mode} chain {chain}", got, want)
-                assert_equal(f"chain_gemm {mode} chain {chain}, planted rows",
-                             chain_gemm(*hard, chain, mode), chain_gemm_plain(*hard, chain, mode))
-                errs[chain] = 0.0
-            elif chain == 1:
-                errs[chain] = check_close("chain_gemm bf16 chain 1", got, want, 2.0**-7, 1e-3)
-            else:
-                errs[chain] = check_rel(f"chain_gemm bf16 chain {chain}", got, want, K9_BF16_LIMIT)
-                print(f"chain_gemm bf16 chain {chain}: max|ref| {want.float().abs().max().item()}")
+                k9_check(*hard, chain, mode, f"chain_gemm {mode} chain {chain}, planted rows")
         if mode == "int8+requant":
             first = chain_gemm(*hard, 1, mode)
             want = torch.tensor([127, 0, 2, 4, 0, -2], dtype=torch.int8, device="cuda")
             if first[0].any() or not torch.equal(first[1, :6], want):
                 raise AssertionError(f"chain_gemm requant corners: {first[1, :8].tolist()}")
+        assert_equal(f"chain_gemm {mode} chain {K9_CHAIN}, repeat",
+                     chain_gemm(x, w, K9_CHAIN, mode), chain_gemm(x, w, K9_CHAIN, mode))
         ms = cuda_ms(lambda: chain_gemm(x, w, K9_CHAIN, mode))
         plain_ms = cuda_ms(lambda: chain_gemm_plain(x, w, K9_CHAIN, mode), reps=3)
         lib_ms = cuda_ms(lambda: k9_library(x, w, K9_CHAIN, mode))
@@ -1442,9 +1538,23 @@ def phase_chain_gemm():
             errs[K9_CHAIN], ms, plain_ms, nbytes=x.element_size() * (2 * x.numel() + w.numel()),
             ops=ops, peak="bf16" if mode == "bf16" else "int8", library_ms=lib_ms)
         print(f"chain_gemm ({K9_ROWS}, {K9_DIM}) x ({K9_DIM}, {K9_DIM}) chain {K9_CHAIN} {mode}: "
-              f"max_abs_err chain 1 {errs[1]}, chain {K9_CHAIN} {errs[K9_CHAIN]}; kernel {ms} ms "
-              f"({ops / ms / 1e9} Tops/s) plain {plain_ms} ms library {lib_ms} ms bound "
-              f"{modes[mode]['bound_ms']} ms")
+              f"max_abs_err chain 1 {errs[1]}, chain 2 {errs[2]}, chain {K9_CHAIN} {errs[K9_CHAIN]}; "
+              f"kernel {ms} ms ({ops / ms / 1e9} Tops/s) plain {plain_ms} ms library {lib_ms} ms "
+              f"bound {modes[mode]['bound_ms']} ms")
+    for dim in (128, 384, K9_DIM):
+        for rows in (1, 127, 129):
+            small = bench_int8_gemm.make_inputs(rows, dim, "cuda")
+            for mode in CHAIN_MODES:
+                for chain in (1, 2, 5):
+                    k9_check(*small[mode], chain, mode, f"chain_gemm {mode} ({rows}, {dim}) chain {chain}")
+    print(f"chain_gemm rows 1, 127, 129 x dim 128, 384, {K9_DIM}, chain 1, 2, 5: int8 modes equal, "
+          f"bf16 inside its limits")
+    try:
+        chain_gemm(*bench_int8_gemm.make_inputs(8, 640, "cuda")["bf16"], 1, "bf16")
+    except ValueError as e:
+        print(f"chain_gemm dim 640 (five column tiles) refused: {e}")
+    else:
+        raise AssertionError("chain_gemm took dim 640")
     return {**modes["bf16"], "modes": modes}
 
 

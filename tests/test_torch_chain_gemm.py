@@ -23,7 +23,13 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from vittf_tpu_torch.ops.chain_gemm import MODES, chain_gemm, chain_gemm_plain, wrap_int8
+from vittf_tpu_torch.ops.chain_gemm import (
+    MODES,
+    chain_gemm,
+    chain_gemm_plain,
+    kernel_tile,
+    wrap_int8,
+)
 from vittf_tpu_torch.scripts import bench_int8_gemm as port_probe
 
 REPO = Path(__file__).resolve().parents[1]
@@ -122,6 +128,84 @@ def test_bf16_mode_matches_jax(jax_probe, chain):
         assert (err <= 2.0**-7 * np.abs(want) + 1e-3).all(), err.max()
     else:
         assert err.max() <= 0.03 * np.abs(want).max(), (err.max(), np.abs(want).max())
+
+
+@pytest.mark.parametrize("rows", [1, 127, 129])
+@pytest.mark.parametrize("mode", MODES)
+def test_ragged_rows_chain_2_match_jax(jax_probe, mode, rows):
+    """Row counts on both sides of the kernel's 128-row block, two steps (both
+    ping-pong buffers): the plain version against the Pallas body."""
+    rng = np.random.default_rng(rows)
+    if mode == "bf16":
+        x = jnp.asarray(rng.standard_normal((rows, DIM)), jnp.bfloat16)
+        w = jnp.asarray(rng.standard_normal((DIM, DIM)) / np.sqrt(DIM), jnp.bfloat16)
+        xt, wt = (torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+                  for a in (x, w))
+    else:
+        xn = rng.integers(-127, 128, (rows, DIM)).astype(np.int8)
+        wn = rng.integers(-8, 9, (DIM, DIM)).astype(np.int8)
+        x, w, xt, wt = jnp.asarray(xn), jnp.asarray(wn), torch.from_numpy(xn), torch.from_numpy(wn)
+    want = _jax_chain(jax_probe, x, w, 2, mode)
+    got = chain_gemm(xt, wt, 2, mode).float().numpy()
+    assert got.shape == (rows, DIM)
+    if mode == "bf16":
+        assert np.abs(got - want).max() <= 0.03 * np.abs(want).max()
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def _cluster_requant_model(x, w, chain, bn):
+    """The CUDA kernel's int8+requant step in numpy: a row block's columns are
+    ``dim / bn`` tiles, one thread block each; a block takes max|y| over its
+    own ``bn`` columns per row, the blocks of the cluster read each other's
+    partial maxima, and each quantises its own tile with scale = 127 /
+    max(m, 1e-6) in IEEE fp32, rounding half to even, keeping the low 8 bits."""
+    x = x.astype(np.int64)
+    n_tiles = w.shape[1] // bn
+    for _ in range(chain):
+        y = x @ w.astype(np.int64)
+        partial = np.stack([np.abs(y[:, t * bn:(t + 1) * bn]).max(1) for t in range(n_tiles)])
+        row_max = partial.max(0).astype(np.float32)  # an integer max has no order
+        scale = np.float32(127.0) / np.maximum(row_max, np.float32(1e-6))
+        out = np.empty_like(y)
+        for t in range(n_tiles):
+            tile = y[:, t * bn:(t + 1) * bn].astype(np.float32)
+            out[:, t * bn:(t + 1) * bn] = np.rint(tile * scale[:, None]).astype(np.int64)
+        x = ((out + 128) & 255) - 128
+    return x.astype(np.int8)
+
+
+@pytest.mark.parametrize("dim,chain", [(128, 3), (384, 3), (1536, 2)])
+def test_cluster_requant_model_bit_equal_to_plain(dim, chain):
+    bn = kernel_tile(dim)
+    assert dim // bn in (1, 2, 8)
+    rng = np.random.default_rng(dim)
+    x = rng.integers(-127, 128, (37, dim)).astype(np.int8)
+    w = rng.integers(-8, 9, (dim, dim)).astype(np.int8)
+    x[0] = 0  # the 1e-6 floor
+    x[1] = 0
+    x[1, 0], x[1, 1] = 2, 1  # scale exactly 0.5: ties
+    w[0], w[1] = 0, 0
+    w[0, 0] = 127
+    w[1, :6] = [0, 1, 5, 9, -1, -5]
+    want = chain_gemm_plain(torch.from_numpy(x), torch.from_numpy(w), chain, "int8+requant").numpy()
+    np.testing.assert_array_equal(_cluster_requant_model(x, w, chain, bn), want)
+    if chain:
+        first = _cluster_requant_model(x, w, 1, bn)
+        np.testing.assert_array_equal(first[1, :6], [127, 0, 2, 4, 0, -2])
+
+
+@pytest.mark.parametrize("dim,tile", [
+    (128, 128), (256, 128), (384, 192), (512, 128), (768, 192), (1024, 128), (1536, 192),
+    (0, 0), (64, 0), (192, 0), (200, 0), (640, 0), (1152, 0), (1280, 0), (2048, 0), (3072, 0),
+])
+def test_kernel_tile_widths_and_refusals(dim, tile):
+    """The kernel's column tiles: 192 where it divides, else 128, and a row
+    block's tiles are a thread block cluster of 1, 2, 4 or 8; other dims are
+    refused by the CUDA wrapper (the plain version takes any)."""
+    assert kernel_tile(dim) == tile
+    if tile:
+        assert dim % tile == 0 and dim // tile in (1, 2, 4, 8)
 
 
 def test_wrap_int8_keeps_low_bits():

@@ -8,7 +8,8 @@ from vittf_tpu_torch import kernels
 from vittf_tpu_torch.scripts import kernel_variants as kv
 
 FAULTS = [(name, edits) for name, _, edits in kv.FAULTS if edits]
-CASES = FAULTS + [v for v in kv.ATTENTION_ABLATION + kv.SIMILARITY_ABLATION if v[1]]
+CASES = FAULTS + [v for v in kv.ATTENTION_ABLATION + kv.SIMILARITY_ABLATION + kv.GEMM_ABLATION
+                  if v[1]]
 
 
 @pytest.mark.parametrize("name,edits", CASES, ids=[c[0] for c in CASES])
@@ -20,7 +21,7 @@ def test_edit_applies_exactly_once(name, edits):
 
 
 def test_every_redesigned_kernel_has_three_faults():
-    for kernel in ("K1", "K2", "K4", "K7a"):
+    for kernel in ("K1", "K2", "K4", "K7a", "K3 attention", "K3 gemm", "K9 gemm", "K9 requant"):
         assert sum(name.startswith(kernel) for name, _ in FAULTS) >= 3, kernel
 
 

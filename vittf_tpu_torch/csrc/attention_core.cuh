@@ -44,7 +44,8 @@
 // callers whose scores are known to be small); kPreScaled = q already holds
 // the factor 1/sqrt(hd)·log2(e), so s is in the exp2 domain as it comes out of
 // the product (false: the factor is applied in fp32, in the same FMA that
-// subtracts the max, and q stays unrounded).
+// subtracts the max, and q stays unrounded); kFloorSum = the row sum is held
+// at >= 1e-38 before the division (K3's twin does so).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,12 +55,21 @@
 #include <type_traits>
 
 #include "async_copy.cuh"
+#include "wgmma_common.cuh"
 
 namespace attention_core {
 
 using async_copy::cp_async16;
 using async_copy::cp_async_commit;
 using async_copy::cp_async_wait;
+using wgmma_common::fence_proxy_async;
+using wgmma_common::pack_bf16;
+using wgmma_common::pin;
+using wgmma_common::swz;
+using wgmma_common::tile_desc;
+using wgmma_common::wgmma_commit;
+using wgmma_common::wgmma_fence;
+using wgmma_common::wgmma_wait;
 
 typedef __nv_bfloat16 bf16;
 
@@ -74,11 +84,6 @@ constexpr int kBlockRows = 64 * kWg;
 constexpr int kOnesBytes = 1024;  // a B operand of ones: the row sums of p come from the tensor cores
 constexpr int kSmemBytes = kBlockRows * kHd * 2 + kStages * 2 * kTileBytes + kOnesBytes;
 
-// byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a swizzled tile
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -90,12 +95,6 @@ __device__ __forceinline__ float exp2_fast(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// (x, y) rounded to bf16 and packed, x in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // The pieces below work on one 16-row tile of queries as a warp holds it in
@@ -167,13 +166,16 @@ __device__ __forceinline__ void rescale(float (&acc)[8][4], float (&lsum)[4],
 
 // out rows = bf16(acc · 1/l), l = the row sums as the tensor cores took them
 // (lsum: every column of the 16 x 8 tile holds its row's sum). row0 = the
-// tile's first query; rows >= n_q are not stored.
+// tile's first query; rows >= n_q are not stored. kFloorSum: l is held at
+// >= 1e-38, so a row whose every p underflowed (l = 0, no row max) gives 0 and
+// not 0 · inf.
+template <bool kFloorSum>
 __device__ __forceinline__ void store_rows(const float (&acc)[8][4], const float (&lsum)[4],
                                            bf16* o, int64_t ldo, int row0, int n_q, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float inv = 1.f / lsum[2 * h];
+    const float inv = 1.f / (kFloorSum ? fmaxf(lsum[2 * h], 1e-38f) : lsum[2 * h]);
     const int row = row0 + g + 8 * h;
     if (row < n_q) {
       bf16* orow = o + (int64_t)row * ldo + 2 * t;
@@ -186,45 +188,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[8][4], const float
 }
 
 // ---------------------------------------------------------------------------
-// wgmma: the matrix descriptor, the fences and the instruction
+// wgmma: the instruction (descriptor and fences: wgmma_common.cuh)
 // ---------------------------------------------------------------------------
-
-// Matrix descriptor of a swizzled 64-column bf16 tile (or a slice of it that
-// starts `addr` bytes into shared memory): 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4)  // start address
-         | (uint64_t)1 << 16                // leading byte offset: unused with a swizzle
-         | (uint64_t)(1024 >> 4) << 32      // stride byte offset
-         | (uint64_t)1 << 62;               // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most kPending committed groups are in flight, then pin the
-// accumulators of the group that has finished: the compiler must not read
-// them before the wait.
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait(float (&d)[8][4]) {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-}
-// the same pin for a 16 x 8 accumulator tile that finished with the last wait
-__device__ __forceinline__ void pin(float (&d)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[e])::"memory");
-}
-// cp.async wrote the tiles through the generic proxy; wgmma reads them through
-// the async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 #define VITTF_ACC4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
 #define VITTF_ACC32                                                                       \
@@ -273,7 +238,7 @@ __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4
 // needs (the row mask of its copies, the -inf mask of its scores) is kept out
 // of the loop's body: the last tile's softmax is a copy of the step of its
 // own, and the output is rescaled only where a row's max moved.
-template <bool kMax, bool kPreScaled>
+template <bool kMax, bool kPreScaled, bool kFloorSum = false>
 __device__ __forceinline__ void attention_block(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, int64_t ldq, int64_t ldk, int64_t ldv, int64_t ldo, int q0, int n_q,
@@ -403,7 +368,7 @@ __device__ __forceinline__ void attention_block(
   issue_pv(n_tiles - 1);
   wgmma_wait<0>(acc);
   pin(lsum);
-  store_rows(acc, lsum, o, ldo, q0 + warp * 16, n_q, lane);
+  store_rows<kFloorSum>(acc, lsum, o, ldo, q0 + warp * 16, n_q, lane);
 }
 
 }  // namespace attention_core

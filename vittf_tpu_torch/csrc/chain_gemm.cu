@@ -4,208 +4,197 @@
 // Replaces: scripts/bench_int8_gemm.py::run (Pallas bodies _bf16_kernel,
 // _int8_kernel, _int8_noquant_kernel). The TPU kernel is one program that
 // holds all of x (rows, dim) and W (dim, dim) in VMEM and loops `chain` times
-// inside the body. No Hopper block holds that (W alone is 4.7 MB in bf16
-// against 227 KB of shared memory), and the re-quantizing epilogue needs a
-// whole row of `dim` products before it can write one element. So here one
-// chain step is one GEMM launch over two ping-pong buffers in device memory
-// (x, W and the scratch are 11-30 MB and stay in the 50 MB L2 between steps);
-// a block that kept its rows resident for the whole chain would have to be
-// 16-32 rows tall to fit, and would then re-read all of W from L2 for every
-// 16-32 rows of output, 4-8 times the traffic of the 128 x 128 tiles used
-// here. The entry point issues all `chain` steps on the caller's stream.
+// inside the body. No Hopper block holds that, but the card has thread block
+// clusters, and row m of step i + 1 needs only row m of step i: so ONE launch
+// runs the whole chain. A cluster is the dim / kBN column tiles of one
+// 128-row block (8 blocks of 128 x 192 at dim 1536: 16 clusters = 128 blocks,
+// one wave of the 132 SMs, co-scheduled by the hardware). Each block computes
+// its tile with gemm_core::ring_product (wgmma, cp.async ring), writes it to
+// the ping-pong buffer in device memory (it stays in L2), the cluster meets at
+// a barrier (arrive.release / wait.acquire), and the next step reads the
+// buffer back: no grid-wide barrier, no launch gaps.
 //
-// The three modes are instantiations of ONE kernel: the same 128 x 128 output
-// tile, the same 64-byte K chunk staged through registers into shared memory,
-// the same 2 x 4 warp layout and the same mma.sync fragment addressing, which
-// is byte-identical for both operand widths (one MMA consumes 32 bytes of K:
-// m16n8k16 for bf16, m16n8k32 for s8). What differs is the operand width, the
-// k per MMA, the accumulator type (fp32 / s32) and the epilogue:
-//   bf16          out = bf16(acc)                            (4-byte stores)
-//   int8+shift    out = low 8 bits of (acc >> 8)             (2-byte stores)
-//   int8+requant  acc -> s32 scratch (rows, dim) + per-row max|acc| by
-//                 atomicMax; a second launch per step reads the row max,
-//                 scale = 127 / max(m, 1e-6), out = int8(rint(float(acc) ·
-//                 scale)). IEEE division and multiply, round half to even.
-// W is transposed once per call into (N, K) so that both MMA operands are
-// K-contiguous in shared memory (ldmatrix has no byte transpose).
+// The three modes are instantiations of that one kernel; they differ in the
+// operand width (one MMA step is 32 bytes of K in both), the accumulator type
+// (fp32 / s32) and the epilogue, taken from the accumulator registers:
+//   bf16          out = bf16(acc)
+//   int8+shift    out = low 8 bits of (acc >> 8)
+//   int8+requant  a block takes max|acc| of its 192 columns per row, the
+//                 cluster's blocks read each other's 128 partial maxima
+//                 through distributed shared memory, and each quantises its
+//                 own registers: scale = 127 / max(m, 1e-6), out =
+//                 int8(rint(float(acc) · scale)), IEEE division and multiply,
+//                 round half to even. An integer max has no order, so the
+//                 result is bit-defined. No scratch, no atomics, no second
+//                 launch.
+// All three store 16 bytes a thread (wgmma_common::quad_transpose). W is
+// transposed once per call into (N, K) so that both MMA operands are K-major
+// in shared memory; bf16 could read W as it lies through the descriptor's
+// transpose bit, s8 has no such bit, and one path for the three modes is the
+// simpler code (the transpose is one launch of a few µs in 32 steps).
 //
 // What bounds it on the H100: 2·rows·dim² operations per step against
 // (rows + dim)·dim operand bytes, ~1750 op/byte in bf16 at 2048 x 1536:
-// arithmetic. Every product runs on the tensor cores as warp-level mma.sync;
-// wgmma/TMA pipelines are later work.
+// arithmetic by the roofline. Measured (NVIDIA H100 80GB HBM3, 700 W; chain
+// 32 at 2048 x 1536, chip_smoke.py and scripts/kernel_variants.py
+// gemm-ablation): bf16 0.91-0.98 ms, int8+requant 0.69-0.72, int8+shift
+// 0.53-0.56 (on warp-level MMAs before: 2.31 / 1.48 / 1.40). The same kernel
+// launched once a step instead (no cluster barrier, chain outside) read
+// 0.97-1.05 / 0.79-0.87 / 0.58-0.63 in the same calls, so the chain stayed
+// inside. What holds it now (the same script): with the MMAs and the copies
+// both taken out a third of the time is still there, the part of a step that
+// nothing overlaps: epilogue, cluster barrier, refilling the ring, the last
+// chunk's MMAs. The copies ((128 + 192)·dim bytes a tile and step out of L2,
+// ~4 TB/s in all) cost 5-7% beside the MMAs. The loop's MMAs alone run at
+// ~530 TFLOP/s, with the SM clock reading ~1.25 GHz under this load (clock64
+// against event times), where the published peak assumes 1.83. Tried and
+// slower: four warpgroups a block, 2 x 2 over the same tile (1.33 / 0.89 /
+// 0.76 ms); each 64 x 192 MMA as two 64 x 96 on separate accumulators (1.09-
+// 1.12 bf16). Next would be TMA multicast of the A rows across the cluster and
+// a producer warp (ROADMAP).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_core.cuh"
+
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kThreads = 256;
-constexpr int kBKB = 64;           // bytes of K per chunk, for either operand width
-constexpr int kPitch = kBKB + 16;  // shared-memory row pitch in bytes (20 words: no bank conflicts)
+constexpr int kRows = gemm_core::kRows, kThreads = gemm_core::kThreads;
 
 enum { kModeBf16 = 0, kModeRequant = 1, kModeShift = 2 };
 
-struct StepArgs {
-  const unsigned char* a;   // (M, K) row-major operands
-  const unsigned char* wt;  // (N, K) row-major: W transposed
-  unsigned char* out;       // (M, N) operands of the next step (bf16, shift)
-  int* y;                   // (M, N) s32 products (requant)
-  unsigned* row_max;        // (M) max |product| per row, zero on entry (requant)
-  int M, N, K;              // K in elements
+struct ChainArgs {
+  const unsigned char* x;   // (M, D) operands of step 0
+  const unsigned char* wt;  // (D, D) row-major: W transposed
+  unsigned char* out;       // (M, D): the last step's result, and every second one before it
+  unsigned char* tmp;       // (M, D): the other ping-pong buffer
+  int M, D, chain;
 };
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <int MODE> struct Acc { typedef int type; };
 template <> struct Acc<kModeBf16> { typedef float type; };
 
 __device__ __forceinline__ unsigned abs_u(int v) { return v < 0 ? 0u - (unsigned)v : (unsigned)v; }
 
-// One chain step: out(M, N) = epilogue(A(M, K) · Wt(N, K)ᵀ).
-template <int MODE>
-__global__ void __launch_bounds__(kThreads, 2) gemm_step_kernel(StepArgs p) {
-  constexpr int ES = MODE == kModeBf16 ? 2 : 1;  // operand bytes
-  typedef typename Acc<MODE>::type acc_t;
-  __shared__ __align__(16) unsigned char As[kBM * kPitch];
-  __shared__ __align__(16) unsigned char Bs[kBN * kPitch];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // the MMA's row group and column pair
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const size_t row_bytes = (size_t)p.K * ES;
-
-  // each thread moves two 16-byte vectors of A and two of Wt per K chunk
-  uint4 ra[2], rw[2];
-  auto load = [&](size_t kb) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kThreads, r = idx >> 2, c = (idx & 3) * 16;
-      ra[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < p.M)
-        ra[i] = *reinterpret_cast<const uint4*>(p.a + (size_t)(m0 + r) * row_bytes + kb + c);
-      rw[i] = *reinterpret_cast<const uint4*>(p.wt + (size_t)(n0 + r) * row_bytes + kb + c);
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kThreads, r = idx >> 2, c = (idx & 3) * 16;
-      *reinterpret_cast<uint4*>(As + r * kPitch + c) = ra[i];
-      *reinterpret_cast<uint4*>(Bs + r * kPitch + c) = rw[i];
-    }
-  };
-
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm·64.., cols wn·32..
-  acc_t acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  load(0);
-  for (size_t kb = 0; kb < row_bytes; kb += kBKB) {
-    __syncthreads();  // every warp is done with the previous chunk
-    store();
-    __syncthreads();
-    if (kb + kBKB < row_bytes) load(kb + kBKB);
-#pragma unroll
-    for (int ks = 0; ks < kBKB; ks += 32) {
-      // fragment words: row g (and g + 8), K bytes 4t.. and 16 + 4t.. of this
-      // 32-byte step, the same for bf16 pairs and s8 quads
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const unsigned char* base = As + (wm * 64 + i * 16 + g) * kPitch + ks + 4 * t;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(base);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kPitch);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kPitch + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const unsigned char* base = Bs + (wn * 32 + j * 8 + g) * kPitch + ks + 4 * t;
-        bfr[j][0] = *reinterpret_cast<const uint32_t*>(base);
-        bfr[j][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma(acc[i][j], af[i], bfr[j]);
-    }
-  }
-
-  // epilogue from the accumulator registers: element pairs (2h, 2h + 1) of
-  // acc[i][j] are row g + 8h, columns 2t, 2t + 1 of the 16 x 8 tile
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 64 + i * 16 + g + 8 * h;
-      unsigned row_abs = 0u;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + j * 8 + 2 * t;
-        const size_t at = (size_t)m * p.N + n;
-        const acc_t c0 = acc[i][j][2 * h], c1 = acc[i][j][2 * h + 1];
-        if (MODE == kModeBf16) {
-          if (m < p.M)
-            *reinterpret_cast<__nv_bfloat162*>(p.out + at * 2) =
-                __floats2bfloat162_rn((float)c0, (float)c1);
-        } else if (MODE == kModeShift) {
-          // arithmetic shift, then the low 8 bits: the wrap of an int8 cast
-          const unsigned lo = ((unsigned)((int)c0 >> 8) & 0xffu) |
-                              (((unsigned)((int)c1 >> 8) & 0xffu) << 8);
-          if (m < p.M) *reinterpret_cast<unsigned short*>(p.out + at) = (unsigned short)lo;
-        } else {
-          if (m < p.M) *reinterpret_cast<int2*>(p.y + at) = make_int2((int)c0, (int)c1);
-          row_abs = max(row_abs, max(abs_u((int)c0), abs_u((int)c1)));
-        }
-      }
-      if (MODE == kModeRequant) {
-        row_abs = max(row_abs, __shfl_xor_sync(0xffffffffu, row_abs, 1));
-        row_abs = max(row_abs, __shfl_xor_sync(0xffffffffu, row_abs, 2));
-        if (t == 0 && m < p.M) atomicMax(p.row_max + m, row_abs);
-      }
-    }
-  }
+// the cluster's barrier: writes before the arrive (device and shared memory)
+// are visible to every thread of the cluster after its wait (release / acquire
+// at cluster scope), so the next step's copies read what the other blocks wrote
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// the word at this block's shared-memory address `addr`, read in block `rank` of the cluster
+__device__ __forceinline__ uint32_t ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote, v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(remote) : "memory");
+  return v;
 }
 
-// The requant epilogue's second pass, one block per row: the whole row's max
-// is known only after every column tile of the step has finished.
-__global__ void __launch_bounds__(kThreads) requant_kernel(const int* y, unsigned* row_max,
-                                                           unsigned char* out, int N) {
-  const int m = blockIdx.x;
-  const float mx = (float)row_max[m];
-  const float scale = __fdiv_rn(127.0f, fmaxf(mx, 1e-6f));
-  const int* row = y + (size_t)m * N;
-  for (int n = threadIdx.x * 4; n < N; n += kThreads * 4) {
-    const int4 v = *reinterpret_cast<const int4*>(row + n);
-    const int q0 = (int)rintf(__fmul_rn((float)v.x, scale));
-    const int q1 = (int)rintf(__fmul_rn((float)v.y, scale));
-    const int q2 = (int)rintf(__fmul_rn((float)v.z, scale));
-    const int q3 = (int)rintf(__fmul_rn((float)v.w, scale));
-    const uint32_t pk = ((unsigned)q0 & 0xffu) | (((unsigned)q1 & 0xffu) << 8) |
-                        (((unsigned)q2 & 0xffu) << 16) | (((unsigned)q3 & 0xffu) << 24);
-    *reinterpret_cast<uint32_t*>(out + (size_t)m * N + n) = pk;
+// The whole chain for one 128 x kBN tile; the cluster = all column tiles of
+// the row block. Step s reads x (s = 0) or the buffer step s - 1 wrote, and
+// writes tmp or out so that step chain - 1 lands in out.
+template <int MODE, int kBN>
+__global__ void __launch_bounds__(kThreads, 1) chain_kernel(ChainArgs p) {
+  constexpr int ES = MODE == kModeBf16 ? 2 : 1;  // operand bytes
+  typedef typename Acc<MODE>::type acc_t;
+  extern __shared__ __align__(1024) unsigned char smem_chain[];
+  const uint32_t ring_s = async_copy::shared_addr(smem_chain);
+  const uint32_t part_s = ring_s + gemm_core::ring_bytes(kBN, true);  // 128 partial row maxima
+  unsigned* part_max = reinterpret_cast<unsigned*>(smem_chain + gemm_core::ring_bytes(kBN, true));
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * kRows, n0 = blockIdx.x * kBN;
+  const int64_t row_bytes = (int64_t)p.D * ES;
+  auto buffer = [&](int step) { return ((p.chain - 1 - step) & 1) ? p.tmp : p.out; };
+
+  acc_t acc[kBN / 8][4];
+  gemm_core::zero(acc);
+  for (int step = 0; step < p.chain; ++step) {
+    const unsigned char* src = step == 0 ? p.x : buffer(step - 1);
+    unsigned char* dst = buffer(step);
+    gemm_core::ring_product<acc_t, kBN>(acc, src + m0 * row_bytes, row_bytes, p.M - m0,
+                                        p.wt + n0 * row_bytes, row_bytes, (int)(row_bytes / 128),
+                                        ring_s);
+
+    // epilogue from the accumulator registers: element pairs (2h, 2h + 1) of
+    // acc[j] are row g + 8h of the warp's 16-row slab, columns 8j + 2t, + 1
+    float scale[2] = {0.f, 0.f};
+    if constexpr (MODE == kModeRequant) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned row_abs = 0u;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+          row_abs = max(row_abs, max(abs_u(acc[j][2 * h]), abs_u(acc[j][2 * h + 1])));
+        row_abs = max(row_abs, __shfl_xor_sync(0xffffffffu, row_abs, 1));
+        row_abs = max(row_abs, __shfl_xor_sync(0xffffffffu, row_abs, 2));
+        if (t == 0) part_max[warp * 16 + g + 8 * h] = row_abs;
+      }
+      cluster_sync();  // every block's partial maxima are written
+      const uint32_t n_blocks = cluster_blocks();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned row_abs = 0u;
+        for (uint32_t rank = 0; rank < n_blocks; ++rank)
+          row_abs = max(row_abs, ld_cluster(part_s + (warp * 16 + g + 8 * h) * 4, rank));
+        scale[h] = __fdiv_rn(127.0f, fmaxf((float)row_abs, 1e-6f));
+      }
+    }
+    // 16-byte stores: quad_transpose gives lane t the eight columns of tile
+    // j0 + t (bf16), or the sixteen of tiles j0 + 2t, j0 + 2t + 1 (int8)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + warp * 16 + g + 8 * h;
+      const bool stored = m < p.M;
+      unsigned char* orow = dst + m * row_bytes + (int64_t)n0 * ES;
+      if constexpr (MODE == kModeBf16) {
+#pragma unroll
+        for (int j0 = 0; j0 < kBN / 8; j0 += 4) {
+          uint32_t w[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            w[k] = wgmma_common::pack_bf16(acc[j0 + k][2 * h], acc[j0 + k][2 * h + 1]);
+          wgmma_common::quad_transpose(w);
+          if (stored)
+            *reinterpret_cast<uint4*>(orow + (j0 + t) * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      } else {
+        // the two int8 results of tile j, packed into 16 bits
+        auto quantise = [&](int j) {
+          int q0, q1;
+          if (MODE == kModeShift) {  // arithmetic shift, then the low 8 bits: an int8 cast's wrap
+            q0 = acc[j][2 * h] >> 8, q1 = acc[j][2 * h + 1] >> 8;
+          } else {
+            q0 = (int)rintf(__fmul_rn((float)acc[j][2 * h], scale[h]));
+            q1 = (int)rintf(__fmul_rn((float)acc[j][2 * h + 1], scale[h]));
+          }
+          return ((unsigned)q0 & 0xffu) | (((unsigned)q1 & 0xffu) << 8);
+        };
+#pragma unroll
+        for (int j0 = 0; j0 < kBN / 8; j0 += 8) {
+          uint32_t w[4];  // word k: tile j0 + 2k in the low half, j0 + 2k + 1 in the high
+#pragma unroll
+          for (int k = 0; k < 4; ++k) w[k] = quantise(j0 + 2 * k) | (quantise(j0 + 2 * k + 1) << 16);
+          wgmma_common::quad_transpose(w);
+          // word s now: lane s's columns of tile j0 + 2t (low) and j0 + 2t + 1 (high)
+          if (stored)
+            *reinterpret_cast<uint4*>(orow + j0 * 8 + t * 16) =
+                make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
+                           __byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632));
+        }
+      }
+    }
+    // the next step reads what the cluster's other blocks wrote; and no block
+    // may leave, or write its partial maxima again, while another reads them
+    if (step + 1 < p.chain || MODE == kModeRequant) cluster_sync();
   }
-  __syncthreads();
-  if (threadIdx.x == 0) row_max[m] = 0u;  // ready for the next step
 }
 
 // wt(N, K) = w(K, N)ᵀ for 1- or 2-byte elements; block (32, 8), 32 x 32 tiles
@@ -220,14 +209,52 @@ __global__ void transpose_kernel(const T* w, T* wt, int K, int N) {
     wt[(size_t)(n0 + j) * K + k0 + threadIdx.x] = tile[threadIdx.x][j];
 }
 
+template <int MODE, int kBN>
+int launch_chain(const ChainArgs& p, cudaStream_t s) {
+  constexpr int smem = gemm_core::ring_bytes(kBN, true) + kRows * 4;
+  cudaFuncSetAttribute(chain_kernel<MODE, kBN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = p.D / kBN;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.D / kBN, (p.M + kRows - 1) / kRows);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, chain_kernel<MODE, kBN>, p);
+}
+
+template <int kBN>
+int launch_mode(int mode, const ChainArgs& p, cudaStream_t s) {
+  if (mode == kModeBf16) return launch_chain<kModeBf16, kBN>(p, s);
+  if (mode == kModeShift) return launch_chain<kModeShift, kBN>(p, s);
+  return launch_chain<kModeRequant, kBN>(p, s);
+}
+
+// The column tile width for `dim`, or 0 where the kernel does not take it:
+// the tiles of a row block are one cluster of 1, 2, 4 or 8 blocks.
+int tile_width(int dim) {
+  if (dim < 128 || dim % 128) return 0;
+  for (int bn = 192; bn >= 128; bn -= 64) {
+    const int n = dim / bn;
+    if (dim % bn == 0 && (n == 1 || n == 2 || n == 4 || n == 8)) return bn;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // x (M, D), w (D, D) -> out (M, D) after `chain` steps. wt (D, D) and tmp
-// (M, D) are scratch of the operand type; y (M, D) s32 and row_max (M) u32,
-// zeroed by the caller, are used by mode 1 only. D % 128 == 0.
+// (M, D) are scratch of the operand type; D as tile_width takes it. Two
+// launches: the transpose and the chain. Returns the first CUDA error.
 extern "C" int vittf_chain_gemm(const void* x, const void* w, void* wt, void* out, void* tmp,
-                                void* y, void* row_max, int M, int D, int chain, int mode,
-                                void* stream) {
+                                int M, int D, int chain, int mode, void* stream) {
+  const int bn = tile_width(D);
+  if (!bn || M < 1 || chain < 1 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 tgrid(D / 32, D / 32), tblock(32, 8);
   if (mode == kModeBf16)
@@ -236,28 +263,14 @@ extern "C" int vittf_chain_gemm(const void* x, const void* w, void* wt, void* ou
   else
     transpose_kernel<unsigned char><<<tgrid, tblock, 0, s>>>(
         static_cast<const unsigned char*>(w), static_cast<unsigned char*>(wt), D, D);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
 
-  StepArgs p;
+  ChainArgs p;
+  p.x = static_cast<const unsigned char*>(x);
   p.wt = static_cast<const unsigned char*>(wt);
-  p.y = static_cast<int*>(y);
-  p.row_max = static_cast<unsigned*>(row_max);
-  p.M = M, p.N = D, p.K = D;
-  const dim3 grid(D / kBN, (M + kBM - 1) / kBM);
-  const unsigned char* src = static_cast<const unsigned char*>(x);
-  for (int step = 0; step < chain; ++step) {
-    // ping-pong so that the last step lands in `out`
-    unsigned char* dst = static_cast<unsigned char*>(((chain - 1 - step) & 1) ? tmp : out);
-    p.a = src;
-    p.out = dst;
-    if (mode == kModeBf16) {
-      gemm_step_kernel<kModeBf16><<<grid, kThreads, 0, s>>>(p);
-    } else if (mode == kModeShift) {
-      gemm_step_kernel<kModeShift><<<grid, kThreads, 0, s>>>(p);
-    } else {
-      gemm_step_kernel<kModeRequant><<<grid, kThreads, 0, s>>>(p);
-      requant_kernel<<<M, kThreads, 0, s>>>(p.y, p.row_max, dst, D);
-    }
-    src = dst;
-  }
-  return static_cast<int>(cudaGetLastError());
+  p.out = static_cast<unsigned char*>(out);
+  p.tmp = static_cast<unsigned char*>(tmp);
+  p.M = M, p.D = D, p.chain = chain;
+  return bn == 192 ? launch_mode<192>(mode, p, s) : launch_mode<128>(mode, p, s);
 }

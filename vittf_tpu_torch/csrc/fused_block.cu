@@ -1,5 +1,5 @@
 // One pre-LN ViT block (K3) in bf16 for Hopper (sm_90a): five hand-written
-// launches, every product on the tensor cores.
+// launches, every product a warpgroup MMA (wgmma) on the tensor cores.
 //
 // Replaces: vittf_tpu/ops/fused_block.py::fused_block (Pallas bodies
 // _fused_block_kernel, _fused_block_kernel_rows and their shared
@@ -10,7 +10,7 @@
 // mostly in the 50 MB L2:
 //   (a) LN1 as the prologue of the qkv product, bias in the epilogue (q is
 //       pre-scaled by 1/sqrt(hd)·log2(e) in its weights);
-//   (b) exp2-domain attention per (slice, head, 64-query tile);
+//   (b) exp2-domain attention per (slice, head, 128-query tile);
 //   (c) proj, with bias + LayerScale + residual in the epilogue;
 //   (d) LN2 as the prologue of fc1, bias + tanh-GELU in the epilogue;
 //   (e) fc2, with bias + LayerScale + residual in the epilogue.
@@ -18,32 +18,51 @@
 // fused_block_plain: fp32 accumulation everywhere; q/k/v = bf16(acc + b);
 // proj/fc1/fc2 = bf16(bf16(acc) + b); LN statistics in fp32, then
 // bf16(bf16(bf16(x̂)·g) + b); p = bf16(exp2(s − m)) (or exp2(s) without the
-// row max), denominator = fp32 sum of that rounded p, output = bf16(num ·
-// (1/den)). The row max, when asked for, runs over the valid keys only
-// (the TPU kernel's zero-score padded keys clamp it at >= 0; the softmax is
-// shift-invariant, so the two differ only by rounding).
+// row max), denominator = the sum of that rounded p (held at >= 1e-38),
+// output = bf16(num · (1/den)). The row max, when asked for, runs over the
+// valid keys only (the TPU kernel's zero-score padded keys clamp it at >= 0;
+// the softmax is shift-invariant, so the two differ only by rounding), and
+// it is the running max of an online softmax: p is rounded against the max
+// so far and the sums are rescaled in fp32 when it moves, where the twin
+// rounds against the final max. Both round p to 8 bits relative to a power
+// of two within the row's range; the difference is inside the 0.02 limits
+// (chip_smoke.py prints the readings).
 //
 // What bounds it on the H100: at (8, 4097, 384) one block is 116 GFLOP of
 // linear products plus 206 GFLOP of attention against ~0.35 GB of traffic,
-// ~900 FLOP/byte, above the card's ~295 bf16 ridge: arithmetic. So all
-// products run as warp-level bf16 tensor-core MMAs (nvcuda::wmma 16x16x16
-// fragments, lowered to mma.sync, fp32 accumulators). The linears use
-// 128x128 output tiles over 32-deep K chunks staged through registers into
-// shared memory (the next chunk's loads are in flight during the current
-// chunk's MMAs), LayerNorm applied to the A chunk on its way into shared
-// memory from per-row statistics taken in the prologue. Attention holds a
-// warp's 16 queries as A fragments and streams 64-key K/V tiles; scores go
-// through a per-warp shared-memory tile for the softmax, so the (N x N)
-// matrix never reaches device memory. With the row max, a first pass over
-// the keys takes it, so p is rounded exactly as the plain twin rounds it.
-// wgmma/TMA pipelines are later work.
+// ~900 FLOP/byte, above the card's ~295 bf16 ridge: arithmetic, and inside
+// the attention the exp2 unit (attention_core.cuh). What the design does:
+//   - (b) is attention_core::attention_block, the body of K1, called on the
+//     thirds of the qkv buffer with their row pitch 3·D: scores and p stay in
+//     registers, K/V tiles arrive through a cp.async ring, two blocks an SM;
+//   - (a), (c), (d) are gemm_core::resident_a_product: a thread block owns
+//     128 token rows, brings them in ONCE (K = D <= 512 fits: 128 x 384 bf16
+//     is 96 KB), applies the LayerNorm once while it writes them as the
+//     swizzled A operand, and then walks every column tile of its row block
+//     with only the weight tiles (L2-resident) streaming through the ring;
+//   - (e), K = the MLP width, streams both operands (gemm_core::ring_product);
+//     so do (a), (c), (d) at D > 512 (ViT-B and wider), where the row block
+//     no longer fits: the LayerNorm is then a launch of its own, once a row,
+//     into the attention buffer, which is free at both points;
+//   - epilogues run from the accumulator registers, 16 bytes a load and a
+//     store (wgmma_common::quad_transpose), with the card's own tanh in the
+//     GELU.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 5 at
+// (8, 4097, 384)): the block 0.86 ms (4.09 with warp-level MMAs, LayerNorm per
+// column tile and a two-pass attention), its launches alone (a) 0.107, (b)
+// 0.397, (c) 0.060, (d) 0.157, (e) 0.095 ms. With the MMAs or the copies taken
+// out of the linears (scripts/kernel_variants.py gemm-ablation) no launch
+// gains more than a fifth: a block's prologue, MMA loop and epilogues follow
+// one another, one block an SM, and nothing overlaps them. Two accumulator
+// sets, so that a tile's epilogue runs beside the next tile's MMAs, made ptxas
+// serialize every wgmma (C7514; the block then read 1.11 ms); a producer warp
+// with TMA is the next move (ROADMAP).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "attention_core.cuh"
+#include "gemm_core.cuh"
 
 namespace {
 
@@ -52,18 +71,19 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16(x)); }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// sum over the 16 lanes of a half warp
+__device__ __forceinline__ float half_warp_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
 // ---------------------------------------------------------------------------
 // Linear products: out(M, N) = epilogue(A(M, K) · W(N, K)ᵀ), W in torch's
-// (out, in) layout, which is the column-major B operand of the MMA.
+// (out, in) layout, which is the K-major B operand of the MMA.
 // ---------------------------------------------------------------------------
-constexpr int kBM = 128, kBN = 128, kBK = 32, kGemmThreads = 256;
-constexpr int kLdS = kBK + 8;  // shared-memory row pitch in bf16 (80 bytes)
+constexpr int kThreads = gemm_core::kThreads, kRows = gemm_core::kRows;
+constexpr int kMaxResidentK = 512;  // the A row block must fit beside the ring
 
 enum { kEpiBias = 0, kEpiGelu = 1, kEpiResid = 2 };
 
@@ -82,8 +102,8 @@ struct GemmArgs {
 // 8 bf16 of one A row, LayerNormed: bf16(bf16(bf16((x − mu)·rs)·g) + b)
 __device__ __forceinline__ uint4 layer_norm8(uint4 v, float mu, float rs, const bf16* g,
                                              const bf16* b) {
-  const uint4 gv = *reinterpret_cast<const uint4*>(g);
-  const uint4 bv = *reinterpret_cast<const uint4*>(b);
+  const uint4 gv = __ldg(reinterpret_cast<const uint4*>(g));
+  const uint4 bv = __ldg(reinterpret_cast<const uint4*>(b));
   bf16* e = reinterpret_cast<bf16*>(&v);
   const bf16* ge = reinterpret_cast<const bf16*>(&gv);
   const bf16* be = reinterpret_cast<const bf16*>(&bv);
@@ -95,299 +115,256 @@ __device__ __forceinline__ uint4 layer_norm8(uint4 v, float mu, float rs, const 
   return v;
 }
 
+// tanh-GELU with the card's own tanh (tanh.approx.f32: one special-function
+// instruction, relative error 2^-11, under the bf16 rounding that follows)
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float kBeta = 0.7978845608028654f;  // sqrt(2/pi)
-  return 0.5f * x * (1.f + tanhf(kBeta * (x + 0.044715f * x * x * x)));
+  float th;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(th) : "f"(kBeta * (x + 0.044715f * x * x * x)));
+  return 0.5f * x * (1.f + th);
 }
 
-template <int EPI, bool LN>
-__global__ void __launch_bounds__(kGemmThreads, 2) linear_kernel(GemmArgs p) {
-  __shared__ __align__(128) bf16 As[kBM * kLdS];
-  __shared__ __align__(128) bf16 Bs[kBN * kLdS];
-  __shared__ __align__(128) float Cs[kGemmThreads / 32][16 * 16];  // per-warp epilogue tile
-  __shared__ float row_mu[kBM], row_rs[kBM];
+// 16 bytes that no launch of this file writes while it reads them (weights,
+// the launch's own input): the compiler may move the load above stores
+__device__ __forceinline__ void load_words(uint32_t (&w)[4], const bf16* p) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+}
 
+// Columns n0 + 8·j0 .. + 31 (four 8-column tiles) of a 128 x (8·kTiles) tile
+// out of the accumulator registers: rows m_warp + g and + 8 of this warp's
+// 16-row slab. A thread's sums sit on the column pairs 8j + 2t of every tile
+// j; bias, gamma and residual are loaded, and the result stored, as the 16
+// bytes of tile j0 + t, through quad_transpose.
+template <int EPI, int kTiles>
+__device__ __forceinline__ void epilogue(const float (&acc)[kTiles][4], const GemmArgs& p,
+                                         int m_warp, int n0, int j0) {
+  using wgmma_common::quad_transpose;
+  using wgmma_common::unpack_bf16;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n = n0 + 8 * (j0 + t);
+  const int m[2] = {m_warp + g, m_warp + g + 8};
+  uint32_t bias[4], gamma[4] = {0u, 0u, 0u, 0u}, x[2][4] = {};
+  if (EPI == kEpiResid) {  // both rows' loads in flight before either is used
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (m[h] < p.M) load_words(x[h], p.resid + (size_t)m[h] * p.N + n);
+    load_words(gamma, p.ls + n);
+    quad_transpose(gamma);
+  }
+  load_words(bias, p.bias + n);
+  quad_transpose(bias);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t o[4];
+    if (EPI == kEpiResid) quad_transpose(x[h]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float c0 = acc[j0 + k][2 * h], c1 = acc[j0 + k][2 * h + 1];
+      const float2 b = unpack_bf16(bias[k]);
+      if (EPI == kEpiBias) {
+        o[k] = wgmma_common::pack_bf16(c0 + b.x, c1 + b.y);
+      } else if (EPI == kEpiGelu) {
+        o[k] = wgmma_common::pack_bf16(gelu_tanh(rbf(rbf(c0) + b.x)),
+                                       gelu_tanh(rbf(rbf(c1) + b.y)));
+      } else {
+        const float2 xr = unpack_bf16(x[h][k]), ls = unpack_bf16(gamma[k]);
+        o[k] = wgmma_common::pack_bf16(xr.x + rbf(rbf(rbf(c0) + b.x) * ls.x),
+                                       xr.y + rbf(rbf(rbf(c1) + b.y) * ls.y));
+      }
+    }
+    quad_transpose(o);
+    const bool stored = m[h] < p.M;
+    if (stored)
+      *reinterpret_cast<uint4*>(p.out + (size_t)m[h] * p.N + n) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// (a), (c), (d): a thread block owns rows m0.. of A, stages them once
+// (LayerNormed if LN) as K/64 swizzled chunk tiles and walks all N / kBN
+// column tiles. Dynamic shared memory: K/64 A tiles, then the B ring.
+template <int EPI, bool LN, int kBN>
+__global__ void __launch_bounds__(kThreads, 1) linear_resident_kernel(GemmArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem_resident[];
+  const uint32_t a_s = async_copy::shared_addr(smem_resident);
+  const int n_k = p.K / 64;
+  const uint32_t ring_s = a_s + n_k * gemm_core::kATileBytes;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.x * kRows;
 
+  // the row block as it lies, rows >= M as zeros; without a LayerNorm these
+  // copies join the ring's first group
+  for (int kc = 0; kc < n_k; ++kc)
+    gemm_core::copy_tile<kRows>(a_s + kc * gemm_core::kATileBytes,
+                                reinterpret_cast<const unsigned char*>(p.a + (size_t)m0 * p.K) +
+                                    kc * gemm_core::kChunkBytes,
+                                (int64_t)p.K * 2, p.M - m0);
   if (LN) {
-    // per-row mean and 1/sqrt(var + eps) in fp32, two passes over the row
-    for (int r = warp; r < kBM; r += kGemmThreads / 32) {
-      const int m = m0 + r;
-      float mu = 0.f, rs = 0.f;
-      if (m < p.M) {
-        const bf16* row = p.a + (size_t)m * p.K;
-        float s = 0.f;
-        for (int k = lane * 2; k < p.K; k += 64) {
-          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + k));
-          s += v.x + v.y;
-        }
-        mu = warp_sum(s) / p.K;
-        float q = 0.f;
-        for (int k = lane * 2; k < p.K; k += 64) {
-          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + k));
-          q += (v.x - mu) * (v.x - mu) + (v.y - mu) * (v.y - mu);
-        }
-        rs = rsqrtf(warp_sum(q) / p.K + 1e-6f);
-      }
-      if (lane == 0) {
-        row_mu[r] = mu;
-        row_rs[r] = rs;
-      }
-    }
+    // In place, once per row block: a half warp takes a row, lane l the
+    // 16-byte vectors l, l + 16, .. of it (K / 128 of them, vector c in chunk
+    // tile c / 8); the statistics are two passes over those registers in fp32.
+    async_copy::cp_async_commit();
+    async_copy::cp_async_wait<0>();
     __syncthreads();
-  }
-
-  // each thread moves two 16-byte vectors of A and two of W per K chunk
-  uint4 ra[2], rw[2];
-  auto load = [&](int k0) {
+    constexpr int kMaxVec = kMaxResidentK / 128;
+    const int n_vec = p.K / 128, l16 = lane & 15;
+#pragma unroll 2
+    for (int it = 0; it < 8; ++it) {
+      const int r = warp * 16 + it * 2 + (lane >> 4);
+      const bool valid = m0 + r < p.M;  // rows >= M stay zeros (every lane takes the shuffles)
+      uint4* vec[kMaxVec];
+      uint4 v[kMaxVec];
+      float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kGemmThreads, r = idx >> 2, c = (idx & 3) * 8;
-      const int m = m0 + r;
-      ra[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (m < p.M) ra[i] = *reinterpret_cast<const uint4*>(p.a + (size_t)m * p.K + k0 + c);
-      rw[i] = *reinterpret_cast<const uint4*>(p.w + (size_t)(n0 + r) * p.K + k0 + c);
-    }
-  };
-  auto store = [&](int k0) {
+      for (int i = 0; i < kMaxVec; ++i) {
+        const int c = l16 + 16 * i;
+        vec[i] = reinterpret_cast<uint4*>(smem_resident + (c >> 3) * gemm_core::kATileBytes +
+                                          wgmma_common::swz(r, c & 7));
+        v[i] = i < n_vec ? *vec[i] : make_uint4(0u, 0u, 0u, 0u);
+        const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kGemmThreads, r = idx >> 2, c = (idx & 3) * 8;
-      uint4 v = ra[i];
-      if (LN && m0 + r < p.M) v = layer_norm8(v, row_mu[r], row_rs[r], p.ln_w + k0 + c, p.ln_b + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * kLdS + c) = v;
-      *reinterpret_cast<uint4*>(Bs + r * kLdS + c) = rw[i];
-    }
-  };
-
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm·64.., cols wn·32..
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  load(0);
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    __syncthreads();  // every warp is done with the previous chunk
-    store(k0);
-    __syncthreads();
-    if (k0 + kBK < p.K) load(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm * 64 + i * 16) * kLdS + kk, kLdS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Bs + (wn * 32 + j * 16) * kLdS + kk, kLdS);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-  }
-
-  // epilogue: one 16x16 fragment at a time through the warp's tile; each
-  // lane finishes 8 consecutive outputs of one row and stores 16 bytes
-  float* cs = Cs[warp];
-  const int r = lane >> 1, c = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * 64 + i * 16 + r, n = n0 + wn * 32 + j * 16 + c;
-      if (m < p.M) {
-        const uint4 bv = *reinterpret_cast<const uint4*>(p.bias + n);
-        const bf16* be = reinterpret_cast<const bf16*>(&bv);
-        uint4 ov;
-        bf16* oe = reinterpret_cast<bf16*>(&ov);
-        if (EPI == kEpiBias) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) oe[e] = __float2bfloat16(cs[r * 16 + c + e] + bf(be[e]));
-        } else if (EPI == kEpiGelu) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            oe[e] = __float2bfloat16(gelu_tanh(rbf(rbf(cs[r * 16 + c + e]) + bf(be[e]))));
-        } else {
-          const uint4 lv = *reinterpret_cast<const uint4*>(p.ls + n);
-          const uint4 xv = *reinterpret_cast<const uint4*>(p.resid + (size_t)m * p.N + n);
-          const bf16* le = reinterpret_cast<const bf16*>(&lv);
-          const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float a = rbf(rbf(cs[r * 16 + c + e]) + bf(be[e]));
-            oe[e] = __float2bfloat16(bf(xe[e]) + rbf(a * bf(le[e])));
-          }
-        }
-        *reinterpret_cast<uint4*>(p.out + (size_t)m * p.N + n) = ov;
+        for (int j = 0; j < 8; ++j) s += bf(e[j]);
       }
-      __syncwarp();
+      const float mu = half_warp_sum(s) / p.K;
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxVec; ++i) {
+        const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (i < n_vec) q += (bf(e[j]) - mu) * (bf(e[j]) - mu);
+      }
+      const float rs = rsqrtf(half_warp_sum(q) / p.K + 1e-6f);
+#pragma unroll
+      for (int i = 0; i < kMaxVec; ++i)
+        if (i < n_vec && valid)
+          *vec[i] = layer_norm8(v[i], mu, rs, p.ln_w + (l16 + 16 * i) * 8, p.ln_b + (l16 + 16 * i) * 8);
     }
   }
+  const int m_warp = m0 + warp * 16;  // warps 0-3 = warpgroup 0 = rows 0-63
+  gemm_core::resident_a_product<float, kBN>(
+      a_s, n_k, reinterpret_cast<const unsigned char*>(p.w), (int64_t)p.K * 2, p.N / kBN, ring_s,
+      [&](const float (&acc)[kBN / 8][4], int n0, int j0) {
+        epilogue<EPI>(acc, p, m_warp, n0, j0);
+      });
+}
+
+// LayerNorm of (M, K) rows as a launch of its own (D > kMaxResidentK): a half
+// warp a row, three passes over the row (it stays in L1), layer_norm8's
+// rounding points. Block of 256 threads = 16 rows.
+__global__ void __launch_bounds__(256) layer_norm_kernel(const bf16* __restrict__ x,
+                                                         const bf16* __restrict__ w,
+                                                         const bf16* __restrict__ b,
+                                                         bf16* __restrict__ out, int M, int K) {
+  const int m = blockIdx.x * 16 + (threadIdx.x >> 4), l16 = threadIdx.x & 15;
+  const bf16* row = x + (size_t)min(m, M - 1) * K;  // every lane takes the shuffles
+  float s = 0.f, q = 0.f;
+  for (int c = l16; c < K / 8; c += 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + c * 8);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += bf(e[j]);
+  }
+  const float mu = half_warp_sum(s) / K;
+  for (int c = l16; c < K / 8; c += 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + c * 8);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) q += (bf(e[j]) - mu) * (bf(e[j]) - mu);
+  }
+  const float rs = rsqrtf(half_warp_sum(q) / K + 1e-6f);
+  if (m < M)
+    for (int c = l16; c < K / 8; c += 16)
+      *reinterpret_cast<uint4*>(out + (size_t)m * K + c * 8) =
+          layer_norm8(*reinterpret_cast<const uint4*>(row + c * 8), mu, rs, w + c * 8, b + c * 8);
+}
+
+// (e), and every linear at D > kMaxResidentK: one 128 x kBN tile, both
+// operands through the ring
+template <int EPI, int kBN>
+__global__ void __launch_bounds__(kThreads, 1) linear_ring_kernel(GemmArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem_ring[];
+  const int m0 = blockIdx.y * kRows, n0 = blockIdx.x * kBN;
+  float acc[kBN / 8][4];
+  gemm_core::zero(acc);
+  gemm_core::ring_product<float, kBN>(
+      acc, reinterpret_cast<const unsigned char*>(p.a + (size_t)m0 * p.K), (int64_t)p.K * 2,
+      p.M - m0, reinterpret_cast<const unsigned char*>(p.w + (size_t)n0 * p.K), (int64_t)p.K * 2,
+      p.K / 64, async_copy::shared_addr(smem_ring));
+  const int m_warp = m0 + (threadIdx.x >> 5) * 16;
+#pragma unroll
+  for (int j0 = 0; j0 < kBN / 8; j0 += 4) epilogue<EPI>(acc, p, m_warp, n0, j0);
 }
 
 // ---------------------------------------------------------------------------
-// Attention over the (B·N, 3D) qkv buffer: q | k | v, head h at columns
-// h·64 of its third. Output (B·N, D), head h at columns h·64.
+// (b) Attention over the (B·N, 3D) qkv buffer: q | k | v, head h at columns
+// h·64 of its third; output (B·N, D), head h at columns h·64. One block =
+// attention_core's 128 queries of one (slice, head); q is pre-scaled, so
+// scale_log2 is unused. Two blocks an SM, as K1 has it.
 // ---------------------------------------------------------------------------
-constexpr int kHd = 64, kTile = 64, kAttnThreads = 128;  // 4 warps x 16 queries
-constexpr int kLdT = kHd + 8;                              // bf16 tile pitch (144 bytes)
-constexpr int kLdF = kTile + 4;                            // fp32 score pitch
-constexpr size_t kAttnSmem = 3 * kTile * kLdT * sizeof(bf16) +  // Q, K, V tiles
-                             4 * 16 * kLdF * sizeof(float) +    // per-warp scores
-                             4 * 16 * kLdT * sizeof(bf16);      // per-warp p
-
-// 64 rows x 64 bf16 from rows row0.. of src (pitch ld) into dst; rows >= limit are 0
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld, int row0, int limit) {
-#pragma unroll
-  for (int i = 0; i < kTile * kHd / 8 / kAttnThreads; ++i) {
-    const int idx = threadIdx.x + i * kAttnThreads, r = idx >> 3, c = (idx & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit) v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdT + c) = v;
-  }
+template <bool kMax>
+__global__ void __launch_bounds__(attention_core::kThreads, 2)
+qkv_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int n_valid,
+                     int D) {
+  extern __shared__ __align__(1024) unsigned char smem_attention[];
+  const int64_t ld = 3 * (int64_t)D;
+  const bf16* q = qkv + (int64_t)blockIdx.z * N * ld + blockIdx.y * attention_core::kHd;
+  attention_core::attention_block<kMax, /*kPreScaled=*/true, /*kFloorSum=*/true>(
+      q, q + D, q + 2 * D, out + (int64_t)blockIdx.z * N * D + blockIdx.y * attention_core::kHd,
+      ld, ld, ld, D, blockIdx.x * attention_core::kBlockRows, N, n_valid, 0.f, smem_attention);
 }
 
-template <bool kMax, bool kScoreBf16>
-__global__ void __launch_bounds__(kAttnThreads, 4)
-block_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int n_valid,
-                       int H) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kTile * kLdT;
-  bf16* Vs = Ks + kTile * kLdT;
-  float* Ss = reinterpret_cast<float*>(Vs + kTile * kLdT);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + 4 * 16 * kLdF);
-
-  const int D = H * kHd, ld = 3 * D;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* base = qkv + (size_t)b * N * ld;
-  const bf16* qg = base + h * kHd;
-  const bf16* kg = base + D + h * kHd;
-  const bf16* vg = base + 2 * D + h * kHd;
-  float* Sw = Ss + warp * 16 * kLdF;
-  bf16* Pw = Ps + warp * 16 * kLdT;
-  const int r = lane >> 1, c0 = (lane & 1) * 32;  // the lane's row of the warp's 16, its 32 columns
-
-  load_tile(Qs, qg, ld, q0, N);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[kHd / 16];
-#pragma unroll
-  for (int kk = 0; kk < kHd / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * kLdT + kk * 16, kLdT);
-
-  // Sw = q·kᵀ for the warp's 16 queries and the K tile's 64 keys (fp32)
-  auto scores = [&]() {
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kHd / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + j * 16 * kLdT + kk * 16, kLdT);
-        wmma::mma_sync(s, qf[kk], kf, s);
-      }
-      wmma::store_matrix_sync(Sw + j * 16, s, kLdF, wmma::mem_row_major);
-    }
-    __syncwarp();
-  };
-  auto score = [&](int col) {
-    const float s = Sw[r * kLdF + col];
-    return kScoreBf16 ? rbf(s) : s;
-  };
-
-  float m = 0.f;
-  if (kMax) {  // first pass: the row max over the valid keys
-    m = -CUDART_INF_F;
-    for (int k0 = 0; k0 < n_valid; k0 += kTile) {
-      __syncthreads();
-      load_tile(Ks, kg, ld, k0, n_valid);
-      __syncthreads();
-      scores();
-      for (int c = 0; c < 32; ++c)
-        if (k0 + c0 + c < n_valid) m = fmaxf(m, score(c0 + c));
-    }
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[kHd / 16];
-#pragma unroll
-  for (int j = 0; j < kHd / 16; ++j) wmma::fill_fragment(of[j], 0.f);
-  float l = 0.f;
-  for (int k0 = 0; k0 < n_valid; k0 += kTile) {
-    __syncthreads();
-    load_tile(Ks, kg, ld, k0, n_valid);
-    load_tile(Vs, vg, ld, k0, n_valid);
-    __syncthreads();
-    scores();
-    for (int c = 0; c < 32; ++c) {
-      float pv = 0.f;
-      if (k0 + c0 + c < n_valid) {
-        const float s = score(c0 + c);
-        const float e = kMax ? (kScoreBf16 ? rbf(s - m) : s - m) : s;
-        pv = rbf(exp2f(e));
-      }
-      l += pv;
-      Pw[r * kLdT + c0 + c] = __float2bfloat16(pv);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::load_matrix_sync(pf, Pw + kk * 16, kLdT);
-#pragma unroll
-      for (int j = 0; j < kHd / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, Vs + kk * 16 * kLdT + j * 16, kLdT);
-        wmma::mma_sync(of[j], pf, vf, of[j]);
-      }
-    }
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  const float inv = 1.f / fmaxf(l, 1e-38f);
-
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < kHd / 16; ++j)
-    wmma::store_matrix_sync(Sw + j * 16, of[j], kLdF, wmma::mem_row_major);
-  __syncwarp();
-  const int q = q0 + warp * 16 + r;
-  if (q < N) {
-    bf16* og = out + ((size_t)b * N + q) * D + h * kHd + c0;
-#pragma unroll
-    for (int c = 0; c < 32; c += 8) {
-      uint4 ov;
-      bf16* oe = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) oe[e] = __float2bfloat16(Sw[r * kLdF + c0 + c + e] * inv);
-      *reinterpret_cast<uint4*>(og + c) = ov;
-    }
-  }
-}
-
-template <int EPI, bool LN>
-int launch_linear(const GemmArgs& a, cudaStream_t s) {
-  dim3 grid(a.N / kBN, (a.M + kBM - 1) / kBM);
-  linear_kernel<EPI, LN><<<grid, kGemmThreads, 0, s>>>(a);
+template <int EPI, bool LN, int kBN>
+int launch_resident_tiles(const GemmArgs& a, cudaStream_t s) {
+  const int smem = a.K / 64 * gemm_core::kATileBytes + gemm_core::ring_bytes(kBN, false);
+  cudaFuncSetAttribute(linear_resident_kernel<EPI, LN, kBN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  linear_resident_kernel<EPI, LN, kBN><<<(a.M + kRows - 1) / kRows, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool kMax, bool kScoreBf16>
-int launch_attention(const bf16* qkv, bf16* out, int B, int N, int n_valid, int H,
-                     cudaStream_t s) {
-  cudaFuncSetAttribute(block_attention_kernel<kMax, kScoreBf16>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kAttnSmem);
-  dim3 grid((N + kTile - 1) / kTile, H, B);
-  block_attention_kernel<kMax, kScoreBf16><<<grid, kAttnThreads, kAttnSmem, s>>>(
-      qkv, out, N, n_valid, H);
+template <int EPI, int kBN>
+int launch_ring_tiles(const GemmArgs& a, cudaStream_t s) {
+  constexpr int smem = gemm_core::ring_bytes(kBN, true);
+  cudaFuncSetAttribute(linear_ring_kernel<EPI, kBN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  dim3 grid(a.N / kBN, (a.M + kRows - 1) / kRows);
+  linear_ring_kernel<EPI, kBN><<<grid, kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// column tiles are 192 wide where N allows it (fewer, larger MMAs), else 128
+template <int EPI, bool LN>
+int launch_resident(const GemmArgs& a, cudaStream_t s) {
+  return a.N % 192 == 0 ? launch_resident_tiles<EPI, LN, 192>(a, s)
+                        : launch_resident_tiles<EPI, LN, 128>(a, s);
+}
+template <int EPI>
+int launch_ring(const GemmArgs& a, cudaStream_t s) {
+  return a.N % 192 == 0 ? launch_ring_tiles<EPI, 192>(a, s) : launch_ring_tiles<EPI, 128>(a, s);
+}
+
+// A linear with an optional LayerNorm of its input: resident A where the row
+// block fits; else LayerNorm into `normed` (M, K), then the streamed form
+template <int EPI, bool LN>
+int launch_linear(GemmArgs a, bf16* normed, cudaStream_t s) {
+  if (a.K <= kMaxResidentK) return launch_resident<EPI, LN>(a, s);
+  if (LN) {
+    layer_norm_kernel<<<(a.M + 15) / 16, 256, 0, s>>>(a.a, a.ln_w, a.ln_b, normed, a.M, a.K);
+    if (int err = (int)cudaGetLastError()) return err;
+    a.a = normed;
+  }
+  return launch_ring<EPI>(a, s);
+}
+
+template <bool kMax>
+int launch_attention(const bf16* qkv, bf16* out, int B, int N, int n_valid, int H, cudaStream_t s) {
+  constexpr int smem = attention_core::kSmemBytes, rows = attention_core::kBlockRows;
+  cudaFuncSetAttribute(qkv_attention_kernel<kMax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  dim3 grid((N + rows - 1) / rows, H, B);
+  qkv_attention_kernel<kMax><<<grid, attention_core::kThreads, smem, s>>>(
+      qkv, out, N, n_valid, H * attention_core::kHd);
   return (int)cudaGetLastError();
 }
 
@@ -399,11 +376,13 @@ int launch_attention(const bf16* qkv, bf16* out, int B, int N, int n_valid, int 
 //             scratch qkv (B, N, 3D), scratch attn (B, N, D),
 //             scratch x2 (B, N, D), scratch mid (B, N, Hd), out (B, N, D)}.
 // Keys >= n_valid are left out of every softmax. Requires D = 64·H, D and
-// Hd multiples of 128. Returns the first cudaGetLastError() of the five
-// launches.
+// Hd multiples of 128. `launches` is a
+// mask of the five launches to run, bit 0 = (a) .. bit 4 = (e): 31 for the
+// block, one bit to time a launch alone on buffers a whole run has filled.
+// Returns the first cudaGetLastError() of the launches.
 extern "C" int vittf_fused_block(const void* const* ptrs, int B, int N, int n_valid, int D,
-                                 int H, int Hd, int softmax_max, int score_bf16, void* stream) {
-  if (D != H * kHd || D % kBN || Hd % kBN || n_valid < 1 || n_valid > N)
+                                 int H, int Hd, int softmax_max, int launches, void* stream) {
+  if (D != H * attention_core::kHd || D % 128 || Hd % 128 || n_valid < 1 || n_valid > N)
     return (int)cudaErrorInvalidValue;
   const bf16* const* p = reinterpret_cast<const bf16* const*>(ptrs);
   const bf16 *x = p[0], *ln1_w = p[1], *ln1_b = p[2], *wqkv = p[3], *bqkv = p[4];
@@ -416,27 +395,26 @@ extern "C" int vittf_fused_block(const void* const* ptrs, int B, int N, int n_va
   bf16* out = const_cast<bf16*>(p[19]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
-  int err;
+  int err = 0;
 
   // (a) LN1 + qkv
-  if ((err = launch_linear<kEpiBias, true>(
-           {x, wqkv, bqkv, ln1_w, ln1_b, nullptr, nullptr, qkv, M, 3 * D, D}, s)))
-    return err;
+  if (launches & 1)
+    err = launch_linear<kEpiBias, true>(
+        {x, wqkv, bqkv, ln1_w, ln1_b, nullptr, nullptr, qkv, M, 3 * D, D}, attn, s);
   // (b) attention
-  if (softmax_max && score_bf16) err = launch_attention<true, true>(qkv, attn, B, N, n_valid, H, s);
-  else if (softmax_max) err = launch_attention<true, false>(qkv, attn, B, N, n_valid, H, s);
-  else if (score_bf16) err = launch_attention<false, true>(qkv, attn, B, N, n_valid, H, s);
-  else err = launch_attention<false, false>(qkv, attn, B, N, n_valid, H, s);
-  if (err) return err;
+  if (!err && (launches & 2))
+    err = softmax_max ? launch_attention<true>(qkv, attn, B, N, n_valid, H, s)
+                      : launch_attention<false>(qkv, attn, B, N, n_valid, H, s);
   // (c) proj + LayerScale + residual
-  if ((err = launch_linear<kEpiResid, false>(
-           {attn, wproj, bproj, nullptr, nullptr, ls1, x, x2, M, D, D}, s)))
-    return err;
+  if (!err && (launches & 4))
+    err = launch_linear<kEpiResid, false>(
+        {attn, wproj, bproj, nullptr, nullptr, ls1, x, x2, M, D, D}, nullptr, s);
   // (d) LN2 + fc1 + GELU
-  if ((err = launch_linear<kEpiGelu, true>(
-           {x2, wfc1, bfc1, ln2_w, ln2_b, nullptr, nullptr, mid, M, Hd, D}, s)))
-    return err;
+  if (!err && (launches & 8))
+    err = launch_linear<kEpiGelu, true>(
+        {x2, wfc1, bfc1, ln2_w, ln2_b, nullptr, nullptr, mid, M, Hd, D}, attn, s);
   // (e) fc2 + LayerScale + residual
-  return launch_linear<kEpiResid, false>(
-      {mid, wfc2, bfc2, nullptr, nullptr, ls2, x2, out, M, D, Hd}, s);
+  if (!err && (launches & 16))
+    err = launch_ring<kEpiResid>({mid, wfc2, bfc2, nullptr, nullptr, ls2, x2, out, M, D, Hd}, s);
+  return err;
 }

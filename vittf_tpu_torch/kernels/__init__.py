@@ -91,7 +91,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vittf_bls_slice_blocked.restype = i32
     lib.vittf_fused_block.argtypes = [vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.vittf_fused_block.restype = i32
-    lib.vittf_chain_gemm.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.vittf_chain_gemm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
     lib.vittf_chain_gemm.restype = i32
 
 

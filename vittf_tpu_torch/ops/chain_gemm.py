@@ -10,8 +10,10 @@ epilogue included):
                                                  int8(round(float(y) · 127 / max(m, 1e-6)))
     'int8+shift'    int8, int32 accumulate       int8(y >> 8), wrapping
 
-On CUDA tensors ``chain_gemm`` launches ``csrc/chain_gemm.cu`` (every product
-on the tensor cores in the kernel's own body); on CPU tensors it runs
+On CUDA tensors ``chain_gemm`` launches ``csrc/chain_gemm.cu`` (the whole chain
+in one launch: every product a warpgroup MMA in the kernel's own body, the
+column tiles of a row block one thread block cluster that meets at a barrier
+between steps and shares its row maxima); on CPU tensors it runs
 ``chain_gemm_plain``, which rounds where the bodies round. The integer modes
 are bit-defined: round half to even, IEEE division and multiply, arithmetic
 shift, and the cast to int8 keeps the low 8 bits.
@@ -24,7 +26,18 @@ from vittf_tpu_torch import kernels
 from vittf_tpu_torch.utils.tensor import ieee_matmul
 
 MODES = ("bf16", "int8+requant", "int8+shift")
-TILE = 128  # the kernel's output tile: dim must be a multiple
+
+
+def kernel_tile(dim: int) -> int:
+    """The kernel's column tile width for ``dim`` (192 where it divides, else
+    128), or 0 where the kernel does not take ``dim``: a multiple of 128 whose
+    column tiles, one thread block cluster per row block, number 1, 2, 4 or 8."""
+    if dim < 128 or dim % 128:
+        return 0
+    for bn in (192, 128):
+        if dim % bn == 0 and dim // bn in (1, 2, 4, 8):
+            return bn
+    return 0
 
 
 def wrap_int8(v: torch.Tensor) -> torch.Tensor:
@@ -86,22 +99,21 @@ def chain_gemm(x: torch.Tensor, w: torch.Tensor, chain: int, mode: str) -> torch
     rows, dim = x.shape
     if w.device != x.device:
         raise ValueError(f"chain_gemm: w on {w.device}, x on {x.device}")
-    if dim % TILE or rows < 1:
-        raise ValueError(f"chain_gemm kernel needs dim % {TILE} == 0 and rows >= 1, got {rows} x {dim}")
+    if not kernel_tile(dim) or rows < 1:
+        raise ValueError(
+            f"chain_gemm kernel needs rows >= 1 and dim a multiple of 128 that is 1, 2, 4 or 8 "
+            f"column tiles of 192 or 128 (128, 256, 384, 512, 768, 1024, 1536), got {rows} x {dim}")
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"chain_gemm kernel needs contiguous 16-byte aligned {name}")
     if chain < 1:
         return x.clone()
     out, tmp, wt = torch.empty_like(x), torch.empty_like(x), torch.empty_like(w)
-    requant = mode == "int8+requant"
-    y = torch.empty((rows, dim) if requant else (1,), dtype=torch.int32, device=x.device)
-    row_max = torch.zeros(rows if requant else 1, dtype=torch.int32, device=x.device)
     lib = kernels.load_library()
     with torch.cuda.device(x.device):
         code = lib.vittf_chain_gemm(
             x.data_ptr(), w.data_ptr(), wt.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-            y.data_ptr(), row_max.data_ptr(), rows, dim, int(chain), MODES.index(mode),
+            rows, dim, int(chain), MODES.index(mode),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(code, "vittf_chain_gemm")

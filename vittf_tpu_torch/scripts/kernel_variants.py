@@ -1,10 +1,12 @@
 """Build edited copies of the CUDA sources on the card and run a check or a
 timer with each: the planted faults that show a kernel check catches a wrong
-kernel, and the ablations behind the notes on what bounds K1 and K2.
+kernel, and the ablations behind the notes on what bounds K1, K2 and the GEMM
+body of K3 and K9.
 
     python3 -m vittf_tpu_torch.scripts.kernel_variants faults [--only K1]
     python3 -m vittf_tpu_torch.scripts.kernel_variants attention-ablation
     python3 -m vittf_tpu_torch.scripts.kernel_variants similarity-ablation
+    python3 -m vittf_tpu_torch.scripts.kernel_variants gemm-ablation
 
 Run from the repository's root on a machine with one GPU and ``nvcc``: the
 checks are ``chip_smoke.py``'s phases. Each variant copies
@@ -26,6 +28,7 @@ from pathlib import Path
 
 AC, SIM, BL, RB, SO = ("attention_core.cuh", "similarity.cu", "bilateral.cu",
                        "bilateral_reblock.cu", "splat_ordered.cuh")
+GC, FB, CG, WC = "gemm_core.cuh", "fused_block.cu", "chain_gemm.cu", "wgmma_common.cuh"
 
 # (name, chip_smoke phase, [(file, old, new), ...]); a phase without edits is the control
 FAULTS = [
@@ -89,6 +92,83 @@ FAULTS = [
      [(RB, "L, c[base + i], tc[base + i]);", "L, tc[base + i], c[base + i]);")]),
     ("K4+K7a a lane owns the neighbouring bin", "bilateral",
      [(SO, "        if (b == lane + 32 * u) {", "        if (b == lane + 32 * u + 1) {")]),
+    ("control: no edit", "fused_block", []),
+    # K3's attention launch: the wrapper around attention_core in fused_block.cu
+    ("K3 attention: k rows read at pitch D instead of 3D", "fused_block",
+     [(FB, "      ld, ld, ld, D, blockIdx.x", "      ld, D, ld, D, blockIdx.x")]),
+    ("K3 attention: n_valid -> N (padded keys leak)", "fused_block",
+     [(FB, "N, n_valid, 0.f, smem_attention);", "N, N, 0.f, smem_attention);")]),
+    ("K3 attention: head offset 32 instead of 64", "fused_block",
+     [(FB, "(int64_t)blockIdx.z * N * ld + blockIdx.y * attention_core::kHd;",
+       "(int64_t)blockIdx.z * N * ld + blockIdx.y * 32;")]),
+    ("K3 attention: v taken from the k third", "fused_block",
+     [(FB, "      q, q + D, q + 2 * D, out", "      q, q + D, q + D, out")]),
+    ("K3 attention: row max never taken", "fused_block",
+     [(FB, "attention_core::attention_block<kMax, /*kPreScaled=*/true,",
+       "attention_core::attention_block<false, /*kPreScaled=*/true,")]),
+    ("K3 attention: row sum not held at 1e-38", "fused_block",
+     [(FB, "/*kFloorSum=*/true>(", "/*kFloorSum=*/false>(")]),
+    # the GEMM body under K3
+    ("K3 gemm: last K chunk skipped (resident A)", "fused_block",
+     [(GC, "      mma_chunk(acc, a_s + kc * kATileBytes", "      if (kc + 1 < n_k) mma_chunk(acc, a_s + kc * kATileBytes")]),
+    ("K3 gemm: last K chunk skipped (ring: fc2)", "fused_block",
+     [(GC, "    mma_chunk(acc, stage + wg * 64 * kChunkBytes",
+       "    if (chunk + 1 < n_chunks) mma_chunk(acc, stage + wg * 64 * kChunkBytes")]),
+    ("K3 gemm: LayerNorm gain dropped", "fused_block",
+     [(FB, "    e[j] = __float2bfloat16(rbf(y * bf(ge[j])) + bf(be[j]));",
+       "    e[j] = __float2bfloat16(y + bf(be[j]));")]),
+    ("K3 gemm: LayerNorm rows staged one chunk to the right", "fused_block",
+     [(FB, "wgmma_common::swz(r, c & 7));", "wgmma_common::swz(r, (c + 1) & 7));")]),
+    ("K3 gemm: residual from the attention buffer", "fused_block",
+     [(FB, "{attn, wproj, bproj, nullptr, nullptr, ls1, x, x2, M, D, D}",
+       "{attn, wproj, bproj, nullptr, nullptr, ls1, attn, x2, M, D, D}")]),
+    ("K3 gemm: GELU dropped on even columns", "fused_block",
+     [(FB, "pack_bf16(gelu_tanh(rbf(rbf(c0) + b.x)),", "pack_bf16(rbf(rbf(c0) + b.x),")]),
+    ("K3 gemm: proj bias pointer is fc2's", "fused_block",
+     [(FB, "{attn, wproj, bproj, nullptr", "{attn, wproj, bfc2, nullptr")]),
+    ("K3 gemm: qkv bias dropped on even columns", "fused_block",
+     [(FB, "pack_bf16(c0 + b.x, c1 + b.y);", "pack_bf16(c0, c1 + b.y);")]),
+    ("K3 gemm: LayerScale dropped on even columns", "fused_block",
+     [(FB, "xr.x + rbf(rbf(rbf(c0) + b.x) * ls.x),", "xr.x + rbf(rbf(c0) + b.x),")]),
+    ("K3 gemm: every lane loads tile j0's bias", "fused_block",
+     [(FB, "  load_words(bias, p.bias + n);", "  load_words(bias, p.bias + n0 + 8 * j0);")]),
+    ("K3+K9 the quad transpose's last exchange crosses the wrong lanes", "fused_block",
+     [(WC, "  r = __shfl_xor_sync(0xffffffffu, high ? w[1] : w[3], 2);",
+       "  r = __shfl_xor_sync(0xffffffffu, high ? w[1] : w[3], 1);")]),
+    ("control: no edit", "chain_gemm", []),
+    # the GEMM body under K9 and K9's epilogues
+    ("K9 gemm: last K chunk skipped", "chain_gemm",
+     [(GC, "    mma_chunk(acc, stage + wg * 64 * kChunkBytes",
+       "    if (chunk + 1 < n_chunks) mma_chunk(acc, stage + wg * 64 * kChunkBytes")]),
+    ("K9 gemm: Wt rows read at a pitch one chunk short", "chain_gemm",
+     [(CG, "p.wt + n0 * row_bytes, row_bytes, (int)(row_bytes / 128),",
+       "p.wt + n0 * row_bytes, row_bytes - 128, (int)(row_bytes / 128),")]),
+    ("K9 gemm: a block takes its left neighbour's W rows", "chain_gemm",
+     [(CG, "p.wt + n0 * row_bytes, row_bytes, (int)(row_bytes / 128),",
+       "p.wt + (n0 ? n0 - kBN : 0) * row_bytes, row_bytes, (int)(row_bytes / 128),")]),
+    ("K9 gemm: MMA step 16 bytes of K instead of 32", "chain_gemm",
+     [(GC, "tile_desc(a_tile + kk * 32), tile_desc(b_tile + kk * 32)",
+       "tile_desc(a_tile + kk * 16), tile_desc(b_tile + kk * 16)")]),
+    ("K9 requant: row max over all but the cluster's last block", "chain_gemm",
+     [(CG, "for (uint32_t rank = 0; rank < n_blocks; ++rank)",
+       "for (uint32_t rank = 0; rank < max(n_blocks - 1, 1u); ++rank)")]),
+    ("K9 requant: roundf for rintf", "chain_gemm",
+     [(CG, "q0 = (int)rintf(__fmul_rn((float)acc[j][2 * h], scale[h]));",
+       "q0 = (int)roundf(__fmul_rn((float)acc[j][2 * h], scale[h]));")]),
+    ("K9 requant: scale by reciprocal multiply", "chain_gemm",
+     [(CG, "scale[h] = __fdiv_rn(127.0f, fmaxf((float)row_abs, 1e-6f));",
+       "scale[h] = __fmul_rn(127.0f, __frcp_rn(fmaxf((float)row_abs, 1e-6f)));")]),
+    ("K9 shift: by 7 bits", "chain_gemm",
+     [(CG, "q0 = acc[j][2 * h] >> 8,", "q0 = acc[j][2 * h] >> 7,")]),
+    ("K9 ping-pong: even steps always into tmp", "chain_gemm",
+     [(CG, "return ((p.chain - 1 - step) & 1) ? p.tmp : p.out;",
+       "return (step & 1) ? p.out : p.tmp;")]),
+    ("K9 no cluster barrier between steps (a race)", "chain_gemm",
+     [(CG, "if (step + 1 < p.chain || MODE == kModeRequant) cluster_sync();",
+       "if (MODE == kModeRequant) cluster_sync();")]),
+    ("K9 int8 tiles stored in swapped halves", "chain_gemm",
+     [(CG, "make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),",
+       "make_uint4(__byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x5410),")]),
 ]
 
 # K1 at (8, 6, 4097, 64) bf16 with one part of its loop taken out: what the
@@ -127,6 +207,40 @@ SIMILARITY_ABLATION = [
 ]
 
 
+# K3's five launches and K9's three modes at the main path's shapes with one
+# part of the GEMM body taken out (the results are wrong, only the times count)
+GEMM_ABLATION = [
+    ("whole kernels", []),
+    ("no copies after the first chunks",
+     [(GC, "      load(step + kAhead);\n", "      cp_async_commit();\n"),
+      (GC, "    load(chunk + kAhead);  // into the slot chunk - 2 used\n", "    cp_async_commit();\n")]),
+    ("no MMAs", [(GC, "    wgmma_ss(acc, tile_desc(a_tile + kk * 32), tile_desc(b_tile + kk * 32), "
+                      "!(first && kk == 0));\n", "    ;\n")]),
+    ("no epilogue stores in K3 (no bias, GELU, residual either)",
+     [(FB, "    const bool stored = m[h] < p.M;\n",
+       "    const bool stored = m[h] < p.M && acc[j0][0] == 12345.f;\n")]),
+    ("no LayerNorm arithmetic (rows staged as they are)",
+     [(FB, "*vec[i] = layer_norm8(v[i], mu, rs, p.ln_w + (l16 + 16 * i) * 8, p.ln_b + (l16 + 16 * i) * 8);",
+       "*vec[i] = v[i];")]),
+    ("whole kernels, again", []),
+]
+
+
+def _time_gemms(cs, torch):
+    gen = torch.Generator().manual_seed(0)
+    cfg = cs.resolve_model("vits8")
+    model = cs.VisionTransformer.from_state_dict(cfg, cs.init_vit_params(cfg, (0, 0)))
+    blk = model.to("cuda", torch.bfloat16).blocks[0]
+    x = (0.5 * torch.randn(cs.BLOCK_SHAPE, generator=gen)).to("cuda", torch.bfloat16)
+    each = cs.fused_launch_ms(x, blk, cfg.num_heads, False)
+    block = cs.cuda_ms(lambda: cs.fused_block(x, blk, cfg.num_heads, softmax_max=False))
+    inputs = cs.bench_int8_gemm.make_inputs(cs.K9_ROWS, cs.K9_DIM, "cuda")
+    k9 = {m: round(cs.cuda_ms(lambda: cs.chain_gemm(*inputs[m], cs.K9_CHAIN, m)), 4)
+          for m in cs.CHAIN_MODES}
+    return (f"K3 block {round(block, 4)} ms, launches "
+            f"{dict(zip(cs.K3_LAUNCHES, (round(t, 4) for t in each)))}; K9 chain {cs.K9_CHAIN} {k9}")
+
+
 def _time_attention(cs, torch):
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(cs.ATTN_SHAPE, generator=gen).to("cuda", torch.bfloat16)
@@ -146,9 +260,10 @@ def _time_similarity(cs, torch):
     return ", ".join(out)
 
 
-def run_variant(name, edits, check, kernels) -> bool:
+def run_variant(name, edits, check, kernels) -> bool | None:
     """Build ``edits`` into a copy of the sources and run ``check`` with the
-    copy's library loaded; prints the verdict, returns whether it passed."""
+    copy's library loaded; prints the verdict, returns whether it passed
+    (None: an edit did not apply and nothing ran)."""
     import torch
 
     orig = kernels.CSRC
@@ -161,7 +276,7 @@ def run_variant(name, edits, check, kernels) -> bool:
             if text.count(old) != 1:
                 print(f"EDIT DOES NOT APPLY {name}: {old!r} occurs {text.count(old)} times "
                       f"in {fname}")
-                return False
+                return None
             path.write_text(text.replace(old, new))
         kernels.CSRC, kernels._lib = tmp / "csrc", None
         try:
@@ -181,7 +296,8 @@ def run_variant(name, edits, check, kernels) -> bool:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=["faults", "attention-ablation", "similarity-ablation"])
+    ap.add_argument("what", choices=["faults", "attention-ablation", "similarity-ablation",
+                                     "gemm-ablation"])
     ap.add_argument("--only", default="", help="run the variants whose name starts with this")
     args = ap.parse_args(argv)
 
@@ -199,21 +315,26 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(cs.smi_line())
     if args.what == "faults":
+        # a control (no edit) runs when a selected fault shares its phase
+        phases = {phase for name, phase, edits in FAULTS if edits and name.startswith(args.only)}
         todo = [(name, edits, lambda p=phase: getattr(cs, "phase_" + p)(
-            torch.Generator().manual_seed(0))) for name, phase, edits in FAULTS]
+            torch.Generator().manual_seed(0))) for name, phase, edits in FAULTS if phase in phases]
     elif args.what == "attention-ablation":
         todo = [(n, e, lambda: _time_attention(cs, torch)) for n, e in ATTENTION_ABLATION]
-    else:
+    elif args.what == "similarity-ablation":
         todo = [(n, e, lambda: _time_similarity(cs, torch)) for n, e in SIMILARITY_ABLATION]
-    caught = missed = 0
+    else:
+        todo = [(n, e, lambda: _time_gemms(cs, torch)) for n, e in GEMM_ABLATION]
+    verdicts = []
     for name, edits, check in todo:
         if not name.startswith(args.only) and not name.startswith("control"):
             continue
         passed = run_variant(name, edits, check, kernels)
         if edits and args.what == "faults":
-            caught, missed = caught + (not passed), missed + passed
+            verdicts.append(passed)
     if args.what == "faults":
-        print(f"planted faults: {caught} caught, {missed} not caught")
+        print(f"planted faults: {verdicts.count(False)} caught, {verdicts.count(True)} not caught, "
+              f"{verdicts.count(None)} edits did not apply")
     return 0
 
 
