@@ -37,7 +37,14 @@ device SVM predict) and the tools path. Phases:
    65 535 classes, ranks 1 and 2, knife edges at σ_l 7), the blocked splat
    and slice with one row per cell on a 2048 × 2048 image (σ_s 24, σ_l 4: 576
    pixels per cell, 64 bins), and a 2-D solve through the kernels vs plain;
-   kernels and yardsticks timed ten calls an event pair, one call beside it;
+   the blur bit-equal to its twin on CPU tensors, on the card and to its
+   repeat (output poisoned with NaN), there and on ``blur_edge_cases`` (L 37,
+   52, 64; X 1, 3, 19; ranks 2-4; 1 or 5 classes; blur dim 5; an input off a
+   16-byte boundary) and at the whole-grid and 2-D solver lattices; the
+   reblock equal to its twin at X % 4 = 0-3, σ_s 4 and 7, 1 or 2 classes
+   (``reblock_edge_cases``); kernels and yardsticks timed ten calls an event
+   pair, one call beside it, the blur and the reblock beside a copy floor
+   (``out.copy_(src)`` of as many bytes: no library call computes them);
 5. fused block kernel vs plain at (8, 4097, 384) bf16, held on loud weights
    (``loud_params``: every term reaches the output; the branch out − x is
    compared at 0.02·max|branch|) without the softmax row max and, on a block
@@ -187,8 +194,8 @@ from vittf_tpu_torch.pipeline.ntf import (
 )
 from vittf_tpu_torch.pipeline.refine import make_bls_reference, refine_similarities_batched
 from vittf_tpu_torch.scripts import bench_int8_gemm
+from vittf_tpu_torch.utils.cuda_timing import copy_floor, ten_call_ms
 from vittf_tpu_torch.utils.cuda_timing import one_call_ms as cuda_ms
-from vittf_tpu_torch.utils.cuda_timing import ten_call_ms
 from vittf_tpu_torch.utils.tensor import ieee_matmul
 
 ATTN_SHAPE = (8, 6, 4097, 64)  # vits8 at fos 64: 8 slices, 6 heads, 64²+1 tokens
@@ -474,7 +481,7 @@ def phase_bilateral(gen):
         assert_equal(f"bls_slice {shape}", sliced, bls_slice_plain(luma, yl, ss, sl))
         assert_equal(f"bls_slice {shape}: repeat",
                      poisoned(lambda: bls_slice(luma, yl, ss, sl), luma.shape), sliced)
-        blur_err = check_close(f"bls_blur {(C,) + ext}", bls_blur(lat), _blur(lat), 1e-6, 1e-6)
+        check_blur(f"{(C,) + ext}", lat, 6)
 
         # the blocked form on the same planes: bins and t·c are made in torch
         bins, tc = _luma_bins(luma, sl).to(torch.int32), t * c
@@ -514,7 +521,9 @@ def phase_bilateral(gen):
             ("bls_slice", lambda: bls_slice(luma, yl, ss, sl)),
             ("gather", lambda: torch.gather(yl.reshape(C, -1), 1, vid.reshape(C, -1))),
             ("bls_blur", lambda: bls_blur(lat)),
+            ("copy_blur", copy_floor(lat.numel())),
             ("bls_reblock", lambda: bls_reblock(c, ss)),
+            ("copy_reblock", copy_floor((vox + il_b.numel()) // 2)),
             ("bls_unreblock", lambda: bls_unreblock(c_b, ss, shape)),
             ("bls_splat_blocked", lambda: bls_splat_blocked(il_b, c_b, tc_b, L, ss)),
             ("index_add_blocked", lambda: acc.zero_().index_add_(0, flat_ids_b, src_b)),
@@ -540,10 +549,12 @@ def phase_bilateral(gen):
               f"tensors (the twin on the card is off by {splat_err}) "
               f"kernel {ms('bls_splat')} plain {times['bls_splat_plain']} ms index_add_ "
               f"{ms('index_add_')}; slice exact kernel {ms('bls_slice')} plain "
-              f"{times['bls_slice_plain']} ms gather {ms('gather')}; blur max_abs_err "
-              f"{blur_err} kernel {ms('bls_blur')} plain {times['bls_blur_plain']} ms")
+              f"{times['bls_slice_plain']} ms gather {ms('gather')}; blur exact kernel "
+              f"{ms('bls_blur')} plain {times['bls_blur_plain']} ms copy floor "
+              f"{ms('copy_blur')}")
         print(f"blocked kernels {shape} C={C} rows {tuple(il_b.shape[1:])}: reblock exact kernel "
-              f"{ms('bls_reblock')} plain {times['bls_reblock_plain']} ms; unreblock exact "
+              f"{ms('bls_reblock')} plain {times['bls_reblock_plain']} ms copy floor "
+              f"{ms('copy_reblock')}; unreblock exact "
               f"kernel {ms('bls_unreblock')} plain {times['bls_unreblock_plain']} ms; "
               f"blocked splat equal to the twin on CPU tensors (the twin on the card is off by "
               f"{splat_b_err}) kernel {ms('bls_splat_blocked')} "
@@ -560,7 +571,7 @@ def phase_bilateral(gen):
                                       times["index_add_"]),
             "bls_slice": kernel_entry(0.0, times["bls_slice"], times["bls_slice_plain"],
                                       4 * (2 * vox + lattice), vox, "fp32", times["gather"]),
-            "bls_blur": kernel_entry(blur_err, times["bls_blur"], times["bls_blur_plain"],
+            "bls_blur": kernel_entry(0.0, times["bls_blur"], times["bls_blur_plain"],
                                      4 * 2 * lattice, 9 * lattice, "fp32"),
             "bls_reblock": kernel_entry(0.0, times["bls_reblock"], times["bls_reblock_plain"],
                                         4 * (vox + slots), 0, "fp32"),
@@ -575,6 +586,9 @@ def phase_bilateral(gen):
                 4 * (2 * slots + lattice), slots, "fp32", times["gather_blocked"]),
         }
     slice_edge_cases(gen)
+    blur_edge_cases(gen)
+    blur_lattice_rows(gen)
+    reblock_edge_cases(gen)
     phase_blocked_2d_kernels(gen)
     # a 2-D solve: the blocked kernels take it with one row per cell (blur dim 5)
     img = torch.randint(0, 256, (96, 80), generator=gen).float().to("cuda")
@@ -584,6 +598,88 @@ def phase_bilateral(gen):
                       bilateral_solve_gray(t2, img, c2, pixel_impl="scatter", **kw), 1e-4, 1e-5)
     print(f"2-D bilateral solve (96, 80) kernels vs plain: max_abs_err {err}")
     return out
+
+
+def check_blur(name, lat, blur_dim):
+    """K8 on ``lat`` bit-equal to ``_blur`` run on CPU tensors and on the
+    card and to its own repeat, outputs poisoned with NaN first (a vertex the
+    kernel skips shows); the same for ``lat`` copied to a base one word past
+    a 16-byte boundary."""
+    got = poisoned(lambda: bls_blur(lat, blur_dim), lat.shape)
+    assert_equal(f"bls_blur {name} vs the plain twin on CPU tensors", got,
+                 _blur(lat.cpu(), blur_dim).to("cuda"))
+    assert_equal(f"bls_blur {name} vs the plain twin on the card", got, _blur(lat, blur_dim))
+    assert_equal(f"bls_blur {name}: repeat",
+                 poisoned(lambda: bls_blur(lat, blur_dim), lat.shape), got)
+    off = torch.empty(lat.numel() + 1, device="cuda")[1:].view(lat.shape)
+    off.copy_(lat)
+    assert_equal(f"bls_blur {name}, input off a 16-byte boundary",
+                 poisoned(lambda: bls_blur(off, blur_dim), lat.shape), got)
+
+
+def blur_edge_cases(gen):
+    """K8 where its 16-byte runs meet edges: L 37 (runs cross x boundaries),
+    52 and 64; X 1, 3 and 19; lattices of rank 4 with Z = 1 or Y = 1, of rank
+    3 and 2; one class and five (classes that start off a 16-byte boundary);
+    blur dim 5; values with zeros of both signs. Each through ``check_blur``."""
+    cases = (((5, 19, 19, 19, 37), 6), ((1, 7, 3, 1, 52), 6), ((5, 4, 6, 3, 37), 6),
+             ((1, 1, 5, 19, 64), 6), ((5, 3, 1, 19, 37), 6), ((1, 2, 2, 1, 37), 6),
+             ((5, 9, 3, 37), 5), ((1, 19, 19, 64), 5), ((5, 19, 37), 6), ((1, 3, 52), 5),
+             ((5, 1, 1, 1, 37), 6))
+    for ext, blur_dim in cases:
+        lat = torch.randn(ext, generator=gen)
+        lat[lat.abs() < 0.1] = 0.0
+        lat[(lat.abs() > 0.1) & (lat.abs() < 0.2)] = -0.0
+        check_blur(f"{ext} dim {blur_dim}", lat.to("cuda"), blur_dim)
+    print(f"blur edge cases: K8 bit-equal to its twin on CPU tensors and on the card and to its "
+          f"repeat on {len(cases)} lattices (L 37 / 52 / 64, X 1 / 3 / 19, ranks 2-4, 1 or 5 "
+          "classes, blur dim 5, inputs off a 16-byte boundary)")
+
+
+def blur_lattice_rows(gen):
+    """K8 at the lattices of the whole-grid refinement (phase 9: a 256³ grid at
+    σ_s 7, σ_l 5, as many classes as one chunk of ``refine_similarities_batched``
+    holds: a 42 MB lattice, 84 MB moved, beyond the 50 MB L2) and of the 2-D solver
+    (2048² at σ_s 24, σ_l 4, blur dim 5): bit-equal through ``check_blur``,
+    timed ten calls an event pair beside a copy floor of the same bytes."""
+    chunk = 70_000_000 // 256**3  # pipeline/refine.py: VITTF_BLS_CHUNK_VOXELS // crop voxels
+    for name, ext, blur_dim in (
+            ("whole-grid", (chunk,) + _grid_extents((256,) * 3, BLS_SS, BLS_SL), 6),
+            ("2-D solver", (1,) + _grid_extents((2048, 2048), BLS2D_SS, BLS2D_SL), 5)):
+        lat = torch.randn(ext, generator=gen).to("cuda")
+        check_blur(f"{name} {ext}", lat, blur_dim)
+        nbytes = 8 * lat.numel()
+        kernel = ten_call_ms(lambda: bls_blur(lat, blur_dim))
+        floor = ten_call_ms(copy_floor(lat.numel()))
+        print(f"blur {name} lattice {ext} ({nbytes / 1e6} MB moved): exact kernel {kernel} ms, "
+              f"copy floor {floor} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3} ms")
+
+
+def reblock_edge_cases(gen):
+    """K6a equal to its twin, output poisoned with NaN first, at X % 4 = 0,
+    1, 2 and 3 (16-byte reads or one word at a time), σ_s 4 and 7, one class
+    and two, int32 with fill -1 and fp32 with fill 0; and an input off a
+    16-byte boundary with X % 4 = 0."""
+    n = 0
+    for shape in ((9, 13, 20), (10, 6, 1), (7, 11, 18), (13, 5, 23)):
+        for ss in (4, 7):
+            for B in (1, 2):
+                bins = torch.randint(0, 60, (B,) + shape, generator=gen, dtype=torch.int32)
+                vals = torch.rand((B,) + shape, generator=gen)
+                for x, fill in ((bins.to("cuda"), -1), (vals.to("cuda"), 0)):
+                    name = f"bls_reblock {B} x {shape} ss {ss} {x.dtype}"
+                    out_shape = bls_reblock_plain(x, ss, fill).shape
+                    got = poisoned(lambda: bls_reblock(x, ss, fill), out_shape)
+                    assert_equal(name, got, bls_reblock_plain(x, ss, fill))
+                    n += 1
+                    if shape[2] % 4 == 0:
+                        off = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:]
+                        off = off.view(x.shape)
+                        off.copy_(x)
+                        assert_equal(f"{name}, input off a 16-byte boundary",
+                                     poisoned(lambda: bls_reblock(off, ss, fill), out_shape), got)
+    print(f"reblock edge cases: K6a equal to its twin on {n} cases (X % 4 = 0-3, sigma_s 4 and 7, "
+          "1 or 2 classes, int32 and fp32, an input off a 16-byte boundary)")
 
 
 def slice_edge_cases(gen):

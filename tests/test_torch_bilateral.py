@@ -81,18 +81,24 @@ def test_slice_plain_matches_pallas_interpret(shape, ss, sl):
     np.testing.assert_array_equal(got[0].numpy(), want)
 
 
-@pytest.mark.parametrize("blur_dim,lattice", [(6, (3, 4, 5, 6)), (5, (4, 5, 7))])
-def test_blur_plain_matches_jax(blur_dim, lattice):
-    """vs the XLA ``_blur`` (the same order of additions) and, for the 4-D
-    lattice, the Pallas kernel in interpret mode, which sums in another
-    order (rtol 1e-6, atol 1e-5)."""
-    y = np.random.default_rng(4).standard_normal(lattice).astype(np.float32)
-    got = tb._blur(torch.from_numpy(y[None]), blur_dim)[0].numpy()
-    np.testing.assert_allclose(got, np.asarray(jb._blur(jnp.asarray(y), blur_dim)),
-                               rtol=1e-6, atol=1e-5)
-    if len(lattice) == 4:
-        want = np.asarray(jb._blur_pallas4d(jnp.asarray(y), blur_dim, interpret=True))
-        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+@pytest.mark.parametrize(
+    "blur_dim,lattice,batch",
+    [(6, (3, 4, 5, 6), 1), (5, (4, 5, 7), 1), (5, (9, 37), 1), (6, (3, 2, 1, 37), 1),
+     (6, (4, 3, 5, 52), 5)],
+    ids=["6-lattice0", "5-lattice1", "5-rank2", "6-L37-X1", "6-five-classes"])
+def test_blur_plain_matches_jax(blur_dim, lattice, batch):
+    """``bls_blur`` on CPU tensors (its plain twin ``_blur``, which the K8
+    kernel equals bit for bit on the card) vs the XLA ``_blur`` class by
+    class, bit-equal: the same order of additions. For 4-D lattices also vs
+    the Pallas kernel in interpret mode, which sums in another order (rtol
+    1e-6, atol 1e-5)."""
+    y = np.random.default_rng(4).standard_normal((batch,) + lattice).astype(np.float32)
+    got = tb.bls_blur(torch.from_numpy(y), blur_dim).numpy()
+    for k in range(batch):
+        np.testing.assert_array_equal(got[k], np.asarray(jb._blur(jnp.asarray(y[k]), blur_dim)))
+        if len(lattice) == 4:
+            want = np.asarray(jb._blur_pallas4d(jnp.asarray(y[k]), blur_dim, interpret=True))
+            np.testing.assert_allclose(got[k], want, rtol=1e-6, atol=1e-5)
 
 
 def test_div_magic_divides_like_floor_division():

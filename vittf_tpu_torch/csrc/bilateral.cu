@@ -41,13 +41,28 @@
 //   lattice keeps its place in L2.
 // K8 blur. Replaces vittf_tpu/ops/bilateral.py::_blur_pallas4d.
 //   out = 2*dim*y + sum over the four lattice axes of y[+1] + y[-1], with zero
-//   boundaries on every axis. One thread per vertex; the eight neighbour reads
-//   hit L1/L2 (neighbouring threads share them). The sum runs in the order of
-//   the plain twin (z+1, z-1, y+1, y-1, x+1, x-1, l+1, l-1) with the first
-//   product kept out of an FMA, so it is bit-identical to it. Bound: one read
-//   and one write of the lattice, 8 bytes per vertex; at the refinement's
-//   small lattices (7 MB at five 128^3 crops) the index arithmetic and the
-//   launch weigh as much.
+//   boundaries on every axis. Bound: one read and one write of the lattice, 8
+//   bytes per vertex. One thread a vertex, with three `%` and three `/` by
+//   runtime divisors and nine 4-byte loads, was bound by instruction issue
+//   (1.1 TB/s at the request's lattice, warm in L2). So a thread takes one
+//   16-byte run of four consecutive vertices of a class (slice_walk.cuh's
+//   split into head, runs and tail, so the stores are 16 bytes wide however
+//   the class starts), places it once with multiply-high constants for L, X
+//   and Y (slice_walk::Magic, made by the C entry), and reads the run and its
+//   z, y and x neighbours as 16-byte loads where they are 16-byte aligned
+//   (each is, or is not, for every run at once: it depends on L, X*L, Y*X*L
+//   and the input's base). A run that lies in one x (l + 3 < L) tests the six
+//   spatial boundaries once; its l neighbours are its own words, and one word
+//   at each end. A run that crosses an x boundary (L % 4 != 0), and a class's
+//   head and tail, go one vertex at a time. Every vertex sums in the plain
+//   twin's order (z+1, z-1, y+1, y-1, x+1, x-1, l+1, l-1) with the first
+//   product kept out of an FMA, so the result equals _blur's bit for bit.
+//   Plain stores: the solve's next passes read the output from L2. What is
+//   left is the traffic between L2 and the SMs: each vertex is read five times
+//   (as a centre and as a y or z neighbour of four others), which holds the
+//   whole-grid lattice (beyond L2) at 1.05x a device-to-device copy of the
+//   same bytes; keeping planes z - 1 and z in registers while a thread walks
+//   along z measured slower (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -161,30 +176,115 @@ bls_slice_kernel(const float* __restrict__ luma, const float* __restrict__ grid,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-bls_blur_kernel(const float* __restrict__ y, float* __restrict__ out, int Z, int Y, int X,
-                int L, float center) {
-  const int b = blockIdx.y;
-  const unsigned per = (unsigned)Z * Y * X * L;
-  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= per) return;
-  const float* yb = y + (int64_t)b * per;
-  const int l = (int)(i % L);
-  unsigned r = i / L;
-  const int x = (int)(r % X);
-  r /= X;
-  const int yy = (int)(r % Y), z = (int)(r / Y);
-  const unsigned sz = (unsigned)Y * X * L, sy = (unsigned)X * L, sx = L;
-  float o = __fmul_rn(center, yb[i]);
-  o = __fadd_rn(o, z + 1 < Z ? yb[i + sz] : 0.f);
-  o = __fadd_rn(o, z > 0 ? yb[i - sz] : 0.f);
-  o = __fadd_rn(o, yy + 1 < Y ? yb[i + sy] : 0.f);
-  o = __fadd_rn(o, yy > 0 ? yb[i - sy] : 0.f);
-  o = __fadd_rn(o, x + 1 < X ? yb[i + sx] : 0.f);
-  o = __fadd_rn(o, x > 0 ? yb[i - sx] : 0.f);
-  o = __fadd_rn(o, l + 1 < L ? yb[i + 1] : 0.f);
-  o = __fadd_rn(o, l > 0 ? yb[i - 1] : 0.f);
-  out[(int64_t)b * per + i] = o;
+// A lattice's shape for K8: the extents, the word strides of y and z, the
+// multiply-high constants for L, X and Y, and the central factor 2 * dim.
+struct BlurShape {
+  uint32_t Z, Y, X, L, sy, sz;  // sy = X * L, sz = Y * X * L
+  slice_walk::Magic by_l, by_x, by_y;
+  float center;
+};
+
+// A vertex's place in its class's lattice.
+struct Vertex {
+  uint32_t z, y, x, l;
+  // the next vertex in memory order
+  __device__ __forceinline__ void step(const BlurShape& p) {
+    if (++l < p.L) return;
+    l = 0;
+    if (++x < p.X) return;
+    x = 0;
+    if (++y < p.Y) return;
+    y = 0;
+    ++z;
+  }
+};
+
+// The vertex at word i of a class (i < 2^31: the host checks).
+__device__ __forceinline__ Vertex place(uint32_t i, const BlurShape& p) {
+  const uint32_t xr = p.by_l.div(i), zy = p.by_x.div(xr), z = p.by_y.div(zy);
+  return {z, zy - z * p.Y, xr - zy * p.X, i - xr * p.L};
+}
+
+// Four consecutive words at q: one 16-byte load where q is 16-byte aligned.
+__device__ __forceinline__ float4 ld4(const float* q) {
+  if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) return __ldg(reinterpret_cast<const float4*>(q));
+  return make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
+}
+
+// One vertex's blur in the plain twin's order: its centre, then its
+// neighbours z+1, z-1, y+1, y-1, x+1, x-1, l+1, l-1 (0 past an edge).
+__device__ __forceinline__ float sum9(float center, float c, float zp, float zm, float yp,
+                                      float ym, float xp, float xm, float lp, float lm) {
+  float o = __fmul_rn(center, c);
+  o = __fadd_rn(o, zp);
+  o = __fadd_rn(o, zm);
+  o = __fadd_rn(o, yp);
+  o = __fadd_rn(o, ym);
+  o = __fadd_rn(o, xp);
+  o = __fadd_rn(o, xm);
+  o = __fadd_rn(o, lp);
+  return __fadd_rn(o, lm);
+}
+
+// Vertex w at word i, alone (a class's head and tail, runs across an x edge).
+__device__ __forceinline__ float blur_one(const float* __restrict__ yb, uint32_t i, Vertex w,
+                                          const BlurShape& p) {
+  return sum9(p.center, __ldg(yb + i), w.z + 1 < p.Z ? __ldg(yb + i + p.sz) : 0.f,
+              w.z > 0 ? __ldg(yb + i - p.sz) : 0.f, w.y + 1 < p.Y ? __ldg(yb + i + p.sy) : 0.f,
+              w.y > 0 ? __ldg(yb + i - p.sy) : 0.f, w.x + 1 < p.X ? __ldg(yb + i + p.L) : 0.f,
+              w.x > 0 ? __ldg(yb + i - p.L) : 0.f, w.l + 1 < p.L ? __ldg(yb + i + 1) : 0.f,
+              w.l > 0 ? __ldg(yb + i - 1) : 0.f);
+}
+
+constexpr int kBlurRuns = 1;  // 16-byte runs a thread takes (two: 6% slower at the whole grid)
+
+__global__ void __launch_bounds__(slice_walk::kThreads)
+bls_blur_kernel(const float* __restrict__ y, float* __restrict__ out, BlurShape p, uint32_t per) {
+  constexpr int kT = slice_walk::kThreads;
+  const uint64_t start = (uint64_t)blockIdx.y * per;
+  const float* yb = y + start;
+  float* ob = out + start;
+  const slice_walk::Class cl(start, per);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const uint32_t r0 = blockIdx.x * kT * kBlurRuns + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kBlurRuns; ++k) {
+    const uint32_t r = r0 + k * kT;
+    if (r >= cl.runs) break;
+    const uint32_t i = cl.head + 4 * r;
+    const Vertex w = place(i, p);
+    float4 o;
+    if (w.l + 3 < p.L) {  // the run lies in one x: one test a boundary
+      const float* q = yb + i;
+      const float4 c = ld4(q);
+      const float4 zp = w.z + 1 < p.Z ? ld4(q + p.sz) : zero;
+      const float4 zm = w.z > 0 ? ld4(q - p.sz) : zero;
+      const float4 yp = w.y + 1 < p.Y ? ld4(q + p.sy) : zero;
+      const float4 ym = w.y > 0 ? ld4(q - p.sy) : zero;
+      const float4 xp = w.x + 1 < p.X ? ld4(q + p.L) : zero;
+      const float4 xm = w.x > 0 ? ld4(q - p.L) : zero;
+      const float lp = w.l + 4 < p.L ? __ldg(q + 4) : 0.f;  // l+1 of the run's last word
+      const float lm = w.l > 0 ? __ldg(q - 1) : 0.f;        // l-1 of its first
+      o.x = sum9(p.center, c.x, zp.x, zm.x, yp.x, ym.x, xp.x, xm.x, c.y, lm);
+      o.y = sum9(p.center, c.y, zp.y, zm.y, yp.y, ym.y, xp.y, xm.y, c.z, c.x);
+      o.z = sum9(p.center, c.z, zp.z, zm.z, yp.z, ym.z, xp.z, xm.z, c.w, c.y);
+      o.w = sum9(p.center, c.w, zp.w, zm.w, yp.w, ym.w, xp.w, xm.w, lp, c.z);
+    } else {  // the run crosses an x boundary: each vertex alone
+      Vertex v = w;
+      o.x = blur_one(yb, i, v, p);
+      v.step(p);
+      o.y = blur_one(yb, i + 1, v, p);
+      v.step(p);
+      o.z = blur_one(yb, i + 2, v, p);
+      v.step(p);
+      o.w = blur_one(yb, i + 3, v, p);
+    }
+    *reinterpret_cast<float4*>(ob + i) = o;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 8) {  // the class's head and tail
+    const uint32_t i = cl.scalar(threadIdx.x, per);
+    if (i < per) ob[i] = blur_one(yb, i, place(i, p), p);
+  }
 }
 
 inline int cells(int S, int ss) { return (S - 1) / ss + 1; }
@@ -232,17 +332,31 @@ extern "C" int vittf_bls_slice(const float* luma, const float* grid, float* out,
   return (int)cudaGetLastError();
 }
 
-// y and out (B, Z, Y, X, L): contiguous fp32; a lattice of lower rank passes
-// its missing leading axes as 1 (their zero boundaries add nothing).
+// y and out (B, Z, Y, X, L): contiguous fp32, out 16-byte aligned; a lattice
+// of lower rank passes its missing leading axes as 1 (their zero boundaries
+// add nothing). The multiply-high constants are made here, not passed: the
+// blur is launched ~37 times a solve, and three more ctypes words cost the
+// wrapper about a microsecond a call.
 extern "C" int vittf_bls_blur(const float* y, float* out, int B, int Z, int Y, int X, int L,
                               int blur_dim, void* stream) {
   if (B < 1 || B > 65535 || Z < 1 || Y < 1 || X < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
   const int64_t per = (int64_t)Z * Y * X * L;
-  if (per > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (per + kThreads - 1) / kThreads;
-  const dim3 g((unsigned)blocks, B);
-  bls_blur_kernel<<<g, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      y, out, Z, Y, X, L, 2.0f * (float)blur_dim);
+  if (per > INT32_MAX || (reinterpret_cast<uintptr_t>(out) & 15))
+    return (int)cudaErrorInvalidValue;
+  const BlurShape p{(uint32_t)Z,
+                    (uint32_t)Y,
+                    (uint32_t)X,
+                    (uint32_t)L,
+                    (uint32_t)((int64_t)X * L),
+                    (uint32_t)((int64_t)Y * X * L),
+                    slice_walk::Magic::of(L),
+                    slice_walk::Magic::of(X),
+                    slice_walk::Magic::of(Y),
+                    2.0f * (float)blur_dim};
+  // the class's runs, and at least one block for its head and tail
+  const dim3 g((unsigned)(per / 4 / (slice_walk::kThreads * kBlurRuns) + 1), B);
+  bls_blur_kernel<<<g, slice_walk::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      y, out, p, (uint32_t)per);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,22 @@
 // no lattice vertex), 0 for the value planes.
 //
 // K6a reblock.   Replaces vittf_tpu/ops/bilateral.py::_reblock3d_pallas.
+//   Bound: one read and one write, 8 bytes per voxel. K6b's design (one block
+//   a slab, chunks of 32 x positions, two divisions by runtime divisors per
+//   element, 4-byte accesses) is bound by instruction issue here. So a block
+//   takes a chunk of W x positions of one (cy, cz, b) slab: the slab's row of
+//   Xp = NCX*ss positions is split evenly into chunks of at most kReblockWidth,
+//   W a multiple of 4, so no chunk is a sliver. The chunk's output is one
+//   contiguous span of W*P words (P = ss*ss), and the block's shared-memory
+//   tile holds it in that layout, placed so that its 16-byte units fall where
+//   the span's do in device memory. Reads: with X % 4 == 0 (and the volume
+//   16-byte aligned) a thread loads 16-byte runs of four x positions of one
+//   row and writes their four words into the tile P apart; otherwise one word
+//   at a time, 32 consecutive x of a row a warp. A thread's first (row, run)
+//   is divided out once; after that it steps by adds. Rows and x past the
+//   volume are filled by index. After one barrier the span is written as
+//   16-byte runs from the tile, its head and tail a word at a time. Plain
+//   stores: the solve reads the blocked planes again at once.
 // K6b unreblock. Replaces vittf_tpu/ops/bilateral.py::_unreblock3d_pallas.
 //   One block per (cy, cz, b) slab of ss x ss x X words. The slab is walked in
 //   chunks of 32 x positions: the chunk is read with x fastest (coalesced,
@@ -23,9 +39,8 @@
 //   33 words (conflict-free in both directions) and written as 32 output rows
 //   of ss*ss words, which are contiguous in the blocked array. Elements are
 //   moved as 32-bit words, so one kernel serves the int32 bins and the fp32
-//   planes; the ragged z/y/x edge is filled (or cropped, in K6b) by index, so
-//   no padded copy of the volume is made. Bound: one read and one write, 8
-//   bytes per voxel.
+//   planes; the ragged z/y/x edge is cropped by index, so no padded copy of
+//   the volume is made. Bound: one read and one write, 8 bytes per voxel.
 // K7a blocked splat. Replaces vittf_tpu/ops/bilateral.py::_splat_pallas.
 //   out[b, 0, cell, l] = #pixels of the cell in bin l, out[b, 1] = sum c,
 //   out[b, 2] = sum t*c. One warp per cell: its G*PB pixels are contiguous, the
@@ -48,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "slice_walk.cuh"
 #include "splat_ordered.cuh"
 
@@ -55,36 +72,74 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;             // x positions staged per tile
-constexpr int kPitch = kChunk + 1;     // tile row pitch in words
+constexpr int kChunk = 32;             // K6b: x positions staged per tile
+constexpr int kPitch = kChunk + 1;     // K6b: tile row pitch in words
+constexpr int kReblockWidth = 128;     // K6a: the most x positions a block takes
 constexpr int kMaxSmemBytes = 232448;  // what one Hopper block may use
 constexpr int kDefaultSmemBytes = 49152;
 
+// K6a's walk over the tile rows p = dz * ss + dy of a slab, by adds: a
+// thread's first row is divided out once, then it steps.
+struct SlabRow {
+  int p, dz, dy;
+  __device__ __forceinline__ SlabRow(int p0, int ss) : p(p0), dz(p0 / ss), dy(p0 - dz * ss) {}
+  __device__ __forceinline__ void next(int ss) {
+    ++p;
+    if (++dy == ss) dy = 0, ++dz;
+  }
+  // forward by dp = adz * ss + ady rows
+  __device__ __forceinline__ void skip(int dp, int adz, int ady, int ss) {
+    p += dp, dz += adz, dy += ady;
+    if (dy >= ss) dy -= ss, ++dz;
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 bls_reblock_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int Z, int Y,
-                   int X, int ss, int NCY, int NCX, uint32_t fill, int64_t n_slabs) {
-  extern __shared__ uint32_t tile[];  // [ss*ss][kPitch]
-  const int cy = blockIdx.x, cz = blockIdx.y, b = blockIdx.z;
+                   int X, int ss, int NCY, int NCX, uint32_t fill, int64_t n_slabs, int W,
+                   int n_chunks, int vec) {
+  extern __shared__ __align__(16) uint32_t tile[];  // span word j at tile[lead + j]
+  const int cy = blockIdx.x / n_chunks, chunk = blockIdx.x - cy * n_chunks;
+  const int cz = blockIdx.y, b = blockIdx.z;
   const int P = ss * ss, Xp = NCX * ss;
-  const int z0 = cz * ss, y0 = cy * ss;
+  const int z0 = cz * ss, y0 = cy * ss, x0 = chunk * W, nx = min(W, Xp - x0);
   const uint32_t* xb = x + (int64_t)b * Z * Y * X;
-  uint32_t* ob = out + ((int64_t)b * n_slabs + (int64_t)cz * NCY + cy) * Xp * P;
-  for (int x0 = 0; x0 < Xp; x0 += kChunk) {
-    const int nx = min(kChunk, Xp - x0);
-    for (int i = threadIdx.x; i < P * kChunk; i += kThreads) {
-      const int p = i / kChunk, xc = i - p * kChunk;
-      const int dz = p / ss, dy = p - dz * ss;
-      const int z = z0 + dz, y = y0 + dy, xx = x0 + xc;
-      uint32_t v = fill;
-      if (z < Z && y < Y && xx < X) v = xb[((int64_t)z * Y + y) * X + xx];
-      tile[p * kPitch + xc] = v;
+  uint32_t* span = out + ((b * n_slabs + (int64_t)cz * NCY + cy) * Xp + x0) * P;
+  const int lead = (int)((reinterpret_cast<uintptr_t>(span) >> 2) & 3);
+  // a thread's items (row p, column unit u) of the rows x cols grid, p-major;
+  // a unit is 4 x positions (vec) or 1
+  const int unit = vec ? 4 : 1, cols = W / unit;
+  const int step_p = kThreads / cols, step_u = kThreads - step_p * cols;
+  const int adz = step_p / ss, ady = step_p - adz * ss;
+  int u = threadIdx.x % cols;
+  SlabRow row(threadIdx.x / cols, ss);
+  while (row.p < P) {
+    const int z = z0 + row.dz, y = y0 + row.dy, xc = u * unit, xx = x0 + xc;
+    const bool inside = z < Z && y < Y && xx < X;
+    const int64_t src = ((int64_t)z * Y + y) * X + xx;
+    uint32_t* t = tile + lead + xc * P + row.p;  // x position xc of the span, lane p
+    if (vec) {  // X % 4 == 0: xx < X puts the whole run inside the row
+      const uint4 v = inside ? __ldg(reinterpret_cast<const uint4*>(xb + src))
+                             : make_uint4(fill, fill, fill, fill);
+      t[0] = v.x, t[P] = v.y, t[2 * P] = v.z, t[3 * P] = v.w;
+    } else {
+      t[0] = inside ? __ldg(xb + src) : fill;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nx * P; i += kThreads) {
-      const int r = i / P, p = i - r * P;
-      ob[(int64_t)(x0 + r) * P + p] = tile[p * kPitch + r];
-    }
-    __syncthreads();
+    row.skip(step_p, adz, ady, ss);
+    if ((u += step_u) >= cols) u -= cols, row.next(ss);
+  }
+  __syncthreads();
+  // the span's nx * P words: a head up to the first 16-byte boundary, 16-byte
+  // runs, a tail
+  const int n = nx * P, head = min((4 - lead) & 3, n), runs = (n - head) / 4;
+  for (int r = threadIdx.x; r < runs; r += kThreads) {
+    const int j = head + 4 * r;
+    *reinterpret_cast<uint4*>(span + j) = *reinterpret_cast<const uint4*>(tile + lead + j);
+  }
+  const int t = threadIdx.x;
+  if (t < 8) {
+    const int j = t < 4 ? (t < head ? t : n) : head + 4 * runs + t - 4;
+    if (j < n) span[j] = tile[lead + j];
   }
 }
 
@@ -197,19 +252,34 @@ int reblock_setup(Kernel kernel, int B, int Z, int Y, int X, int ss, int64_t* sm
 
 }  // namespace
 
-// x (B, Z, Y, X) and out (B, NCZ*NCY*NCX*ss, ss*ss): contiguous 32-bit words;
-// fill_bits is the word written to slots past the volume. Returns
-// cudaGetLastError() after the launch.
+// x (B, Z, Y, X) and out (B, NCZ*NCY*NCX*ss, ss*ss): contiguous 32-bit words,
+// out 16-byte aligned; fill_bits is the word written to slots past the volume.
+// Returns cudaGetLastError() after the launch.
 extern "C" int vittf_bls_reblock(const void* x, void* out, int B, int Z, int Y, int X, int ss,
                                  unsigned fill_bits, void* stream) {
-  int64_t smem = 0;
-  const int e = reblock_setup(bls_reblock_kernel, B, Z, Y, X, ss, &smem);
-  if (e != 0) return e;
+  if (B < 1 || B > 65535 || Z < 1 || Y < 1 || X < 1 || ss < 1 ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
+    return (int)cudaErrorInvalidValue;
   const int NCZ = cells(Z, ss), NCY = cells(Y, ss), NCX = cells(X, ss);
-  const dim3 grid(NCY, NCZ, B);
+  const int64_t P = (int64_t)ss * ss, Xp = (int64_t)NCX * ss;
+  // chunks: Xp split evenly into pieces of at most kReblockWidth x positions
+  // (fewer where the tile would not fit), each a multiple of 4
+  const int64_t widest = std::min<int64_t>(kReblockWidth, (kMaxSmemBytes / 4 - 4) / P) & ~3;
+  if (NCZ > 65535 || P * Xp > INT32_MAX || widest < 4) return (int)cudaErrorInvalidValue;
+  const int64_t pieces = (Xp + widest - 1) / widest;
+  const int W = (int)(((Xp + pieces - 1) / pieces + 3) & ~3);
+  const int64_t n_chunks = (Xp + W - 1) / W, smem = (W * P + 4) * (int64_t)sizeof(uint32_t);
+  if (n_chunks * NCY > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (smem > kDefaultSmemBytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bls_reblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int vec = X % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const dim3 grid((unsigned)(n_chunks * NCY), NCZ, B);
   bls_reblock_kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), Z, Y, X, ss, NCY, NCX,
-      fill_bits, (int64_t)NCZ * NCY);
+      fill_bits, (int64_t)NCZ * NCY, W, (int)n_chunks, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// What the two slices (K5 in bilateral.cu, K7b in bilateral_reblock.cu) share:
-// division by a runtime divisor without a division instruction, and the split
-// of one class's elements into 16-byte runs.
+// What the two slices (K5 in bilateral.cu, K7b in bilateral_reblock.cu) and
+// the blur (K8 in bilateral.cu) share: division by a runtime divisor without a
+// division instruction, and the split of one class's elements into 16-byte
+// runs.
 //
 // Each slice reads one 4-byte word of a class (a voxel's luma, a slot's bin),
 // gathers one lattice value and writes one 4-byte word. A thread takes kVec
@@ -32,12 +33,18 @@ struct Magic {
   __device__ __forceinline__ uint32_t div(uint32_t n) const {
     return (uint32_t)(((uint64_t)n * m) >> s);
   }
+  // the constants above for 1 <= d < 2^31 (host side)
+  static Magic of(uint32_t d) {
+    uint32_t log2_up = 0;
+    while ((1ull << log2_up) < d) ++log2_up;
+    const uint64_t s = 31 + log2_up;
+    return Magic(((1ull << s) + d - 1) / d | s << 32);
+  }
   // whether (m, s) are the constants above for d (host side)
   bool is_for(uint32_t d) const {
     if (d < 1 || d > INT32_MAX) return false;
-    uint32_t log2_up = 0;
-    while ((1ull << log2_up) < d) ++log2_up;
-    return s == 31 + log2_up && m == (uint32_t)(((1ull << s) + d - 1) / d);
+    const Magic want = of(d);
+    return m == want.m && s == want.s;
   }
 };
 

@@ -243,8 +243,8 @@ def _blur(y: torch.Tensor, blur_dim: int = _BLUR_DIM) -> torch.Tensor:
 
 
 def bls_blur(y: torch.Tensor, blur_dim: int = _BLUR_DIM) -> torch.Tensor:
-    """``_blur``'s result; the K8 kernel for CUDA tensors of up to 4 lattice
-    axes."""
+    """``_blur``'s result, bit for bit; the K8 kernel for CUDA tensors of up
+    to 4 lattice axes."""
     if y.device.type == "cpu":
         return _blur(y, blur_dim)
     if y.device.type != "cuda":

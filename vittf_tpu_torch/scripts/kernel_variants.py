@@ -1,12 +1,13 @@
 """Build edited copies of the CUDA sources on the card and run a check or a
 timer with each: the planted faults that show a kernel check catches a wrong
-kernel, and the ablations behind the notes on what bounds K1, K2 and the GEMM
-body of K3 and K9.
+kernel, and the ablations behind the notes on what bounds K1, K2, the GEMM
+body of K3 and K9, K8 and K6a.
 
     python3 -m vittf_tpu_torch.scripts.kernel_variants faults [--only K1[,K2...]]
     python3 -m vittf_tpu_torch.scripts.kernel_variants attention-ablation
     python3 -m vittf_tpu_torch.scripts.kernel_variants similarity-ablation
     python3 -m vittf_tpu_torch.scripts.kernel_variants gemm-ablation
+    python3 -m vittf_tpu_torch.scripts.kernel_variants bilateral-ablation
 
 Run from the repository's root on a machine with one GPU and ``nvcc``: the
 checks are ``chip_smoke.py``'s phases. Each variant copies
@@ -121,6 +122,31 @@ FAULTS = [
     ("K7b classes b > 0 read class b / 2's lattice", "bilateral",
      [(RB, "const float* g = yl + (uint64_t)blockIdx.y * cells_L;",
        "const float* g = yl + (uint64_t)(blockIdx.y / 2) * cells_L;")]),
+    ("K8 l+1 neighbour read across an x boundary", "bilateral",
+     [(BL, "const float lp = w.l + 4 < p.L ? __ldg(q + 4) : 0.f;",
+       "const float lp = i + 4 < per ? __ldg(q + 4) : 0.f;")]),
+    ("K8 a class's tail dropped", "bilateral",
+     [(BL, "if (i < per) ob[i] = blur_one(", "if (i < cl.head) ob[i] = blur_one(")]),
+    ("K8 a class's head dropped", "bilateral",
+     [(BL, "if (i < per) ob[i] = blur_one(", "if (i < per && i >= cl.head) ob[i] = blur_one(")]),
+    ("K8 z-1 boundary test off by one", "bilateral",
+     [(BL, "const float4 zm = w.z > 0 ? ld4(q - p.sz) : zero;",
+       "const float4 zm = w.z > 1 ? ld4(q - p.sz) : zero;")]),
+    ("K8 a lone vertex's x+1 taken from x-1", "bilateral",
+     [(BL, "w.x + 1 < p.X ? __ldg(yb + i + p.L) : 0.f,",
+       "w.x + 1 < p.X && w.x > 0 ? __ldg(yb + i - p.L) : 0.f,")]),
+    ("K8 z+1 and z-1 added in swapped order", "bilateral",
+     [(BL, "o.x = sum9(p.center, c.x, zp.x, zm.x,", "o.x = sum9(p.center, c.x, zm.x, zp.x,")]),
+    ("K6a a lane's source row one off in dy", "bilateral",
+     [(RB, "const int z = z0 + row.dz, y = y0 + row.dy, xc = u * unit, xx = x0 + xc;",
+       "const int z = z0 + row.dz, y = y0 + max(row.dy - 1, 0), xc = u * unit, xx = x0 + xc;")]),
+    ("K6a the last partial chunk dropped", "bilateral",
+     [(RB, "const int64_t n_chunks = (Xp + W - 1) / W,", "const int64_t n_chunks = Xp / W,")]),
+    ("K6a a span's head word dropped", "bilateral",
+     [(RB, "const int j = t < 4 ? (t < head ? t : n)", "const int j = t < 4 ? (t + 1 < head ? t : n)")]),
+    ("K6a 16-byte reads from the row before", "bilateral",
+     [(RB, "__ldg(reinterpret_cast<const uint4*>(xb + src))",
+       "__ldg(reinterpret_cast<const uint4*>(xb + (src >= X ? src - X : src)))")]),
     ("control: no edit", "fused_block", []),
     # K3's attention launch: the wrapper around attention_core in fused_block.cu
     ("K3 attention: k rows read at pitch D instead of 3D", "fused_block",
@@ -255,6 +281,45 @@ GEMM_ABLATION = [
 ]
 
 
+# K8 at the request's, the whole grid's and the 2-D solver's lattices, and
+# K6a at the request's planes, with one part taken out or one size changed
+# (results wrong where a part is out: only the times count)
+BILATERAL_ABLATION = [
+    ("whole kernels", []),
+    ("K8 two runs a thread", [(BL, "constexpr int kBlurRuns = 1;", "constexpr int kBlurRuns = 2;")]),
+    ("K8 no z neighbour loads",
+     [(BL, "const float4 zp = w.z + 1 < p.Z ? ld4(q + p.sz) : zero;", "const float4 zp = zero;"),
+      (BL, "const float4 zm = w.z > 0 ? ld4(q - p.sz) : zero;", "const float4 zm = zero;")]),
+    ("K8 no y neighbour loads",
+     [(BL, "const float4 yp = w.y + 1 < p.Y ? ld4(q + p.sy) : zero;", "const float4 yp = zero;"),
+      (BL, "const float4 ym = w.y > 0 ? ld4(q - p.sy) : zero;", "const float4 ym = zero;")]),
+    ("K8 no x neighbour loads",
+     [(BL, "const float4 xp = w.x + 1 < p.X ? ld4(q + p.L) : zero;", "const float4 xp = zero;"),
+      (BL, "const float4 xm = w.x > 0 ? ld4(q - p.L) : zero;", "const float4 xm = zero;")]),
+    ("K6a chunks of at most 64 x positions",
+     [(RB, "constexpr int kReblockWidth = 128;", "constexpr int kReblockWidth = 64;")]),
+    ("K6a chunks of at most 32 x positions",
+     [(RB, "constexpr int kReblockWidth = 128;", "constexpr int kReblockWidth = 32;")]),
+    ("whole kernels, again", []),
+]
+
+
+def _time_bilateral(cs, torch):
+    gen = torch.Generator().manual_seed(0)
+    ss, sl = cs.BLS_SS, cs.BLS_SL
+    chunk = 70_000_000 // 256**3
+    lats = {name: (torch.randn((c,) + cs._grid_extents(shape, s, l), generator=gen).to("cuda"), d)
+            for name, c, shape, s, l, d in (
+                ("request", cs.BLS_C, (128,) * 3, ss, sl, 6),
+                ("whole grid", chunk, (256,) * 3, ss, sl, 6),
+                ("2-D", 1, (2048, 2048), cs.BLS2D_SS, cs.BLS2D_SL, 5))}
+    out = [f"K8 {name} {round(cs.ten_call_ms(lambda: cs.bls_blur(lat, d)), 5)}"
+           for name, (lat, d) in lats.items()]
+    c = torch.rand((cs.BLS_C,) + (128,) * 3, generator=gen).to("cuda")
+    out.append(f"K6a {round(cs.ten_call_ms(lambda: cs.bls_reblock(c, ss)), 5)}")
+    return "ms: " + ", ".join(out)
+
+
 def _time_gemms(cs, torch):
     gen = torch.Generator().manual_seed(0)
     cfg = cs.resolve_model("vits8")
@@ -326,7 +391,7 @@ def run_variant(name, edits, check, kernels) -> bool | None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=["faults", "attention-ablation", "similarity-ablation",
-                                     "gemm-ablation"])
+                                     "gemm-ablation", "bilateral-ablation"])
     ap.add_argument("--only", default="",
                     help="run the variants whose name starts with one of these (comma-separated)")
     args = ap.parse_args(argv)
@@ -354,8 +419,10 @@ def main(argv=None) -> int:
         todo = [(n, e, lambda: _time_attention(cs, torch)) for n, e in ATTENTION_ABLATION]
     elif args.what == "similarity-ablation":
         todo = [(n, e, lambda: _time_similarity(cs, torch)) for n, e in SIMILARITY_ABLATION]
-    else:
+    elif args.what == "gemm-ablation":
         todo = [(n, e, lambda: _time_gemms(cs, torch)) for n, e in GEMM_ABLATION]
+    else:
+        todo = [(n, e, lambda: _time_bilateral(cs, torch)) for n, e in BILATERAL_ABLATION]
     verdicts = []
     for name, edits, check in todo:
         if not name.startswith(only) and not name.startswith("control"):

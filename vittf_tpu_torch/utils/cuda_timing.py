@@ -4,7 +4,9 @@
 the call lies between them, which matters for launches of tens of µs.
 ``ten_call_ms`` queues its events behind fp32 matrix products, so that the
 host has enqueued every call before the card reaches the first: it reads
-device time only. Both need a CUDA card.
+device time only. ``copy_floor`` makes a device-to-device copy of a given
+size, the floor timed beside a kernel that has no library counterpart. All
+need a CUDA card.
 """
 from __future__ import annotations
 
@@ -90,3 +92,13 @@ def ten_call_ms(fn, calls: int = 10, reps: int = 7, cold_l2: bool = False) -> fl
         else:
             raise RuntimeError(f"the card caught up with the host behind {queued} products")
     return statistics.median(times)
+
+
+def copy_floor(n_words: int):
+    """A call that copies ``n_words`` fp32 words on the card (``dst.copy_(src)``):
+    the least time any kernel that reads and writes as many bytes once can
+    take. A floor to time beside a kernel, not a library call for its
+    function."""
+    src = torch.randn(n_words, device="cuda")
+    dst = torch.empty_like(src)
+    return lambda: dst.copy_(src)
