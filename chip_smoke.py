@@ -41,9 +41,11 @@ device SVM predict) and the tools path. Phases:
    repeat (output poisoned with NaN), there and on ``blur_edge_cases`` (L 37,
    52, 64; X 1, 3, 19; ranks 2-4; 1 or 5 classes; blur dim 5; an input off a
    16-byte boundary) and at the whole-grid and 2-D solver lattices; the
-   reblock equal to its twin at X % 4 = 0-3, σ_s 4 and 7, 1 or 2 classes
-   (``reblock_edge_cases``); kernels and yardsticks timed ten calls an event
-   pair, one call beside it, the blur and the reblock beside a copy floor
+   reblock and the unreblock equal to their twins at X % 4 = 0-3, σ_s 4 and
+   7, 1 or 2 classes, inputs and the unreblock's output off a 16-byte
+   boundary (``reblock_edge_cases``); kernels and yardsticks timed ten calls
+   an event pair, one call beside it, the blur and both transposes beside a
+   copy floor
    (``out.copy_(src)`` of as many bytes: no library call computes them);
 5. fused block kernel vs plain at (8, 4097, 384) bf16, held on loud weights
    (``loud_params``: every term reaches the output; the branch out − x is
@@ -66,6 +68,12 @@ device SVM predict) and the tools path. Phases:
    with a seeded stand-in classifier (12 000 support vectors, 6 classes),
    from a device tensor and host-streamed (bit-equal), against an fp64
    evaluation of the same vote on 200 000 voxels (agreement >= 0.9999);
+5c. trainer foundations: ``make_multiclass_volume`` at 128³ equal to the CPU
+   run; ``feature_extractor_forward`` and ``pawsnet_forward`` (train and
+   eval) at the JAX defaults on 4096 crops of 7³, the losses and their
+   gradients, one ``ProbeTrainer.fit`` epoch on 384-wide features, each
+   against the same call on CPU tensors; a parameter ``.npz`` and a
+   checkpoint read back equal;
 6. main path: ``infer`` on a 128³ phantom, ``predict_ntf``, three requests;
    the attention and similarity launch counters must have risen;
 7. fused path: ``infer --block-impl fused`` on the same volume (528 fused
@@ -154,6 +162,7 @@ from vittf_tpu_torch.ops.bilateral import (
     _blur,
     _grid_extents,
     _lattice_solve,
+    _launch,
     _luma_bins,
     _vertex_ids,
     apply_bilateral_solver2d,
@@ -184,6 +193,22 @@ from vittf_tpu_torch.ops.fused_block import (
 )
 from vittf_tpu_torch.ops.similarity import class_mean_matrix, similarity, similarity_plain
 from vittf_tpu_torch.pipeline.annotations import annotations_from_labels
+from vittf_tpu_torch.core.synthetic import make_multiclass_volume
+from vittf_tpu_torch.models.cnn3d import (
+    FeatureExtractorConfig,
+    PAWSNetConfig,
+    feature_extractor_forward,
+    init_pawsnet,
+    pawsnet_forward,
+)
+from vittf_tpu_torch.models.serialization import (
+    load_params_npz,
+    restore_checkpoint,
+    save_checkpoint,
+    save_params_npz,
+)
+from vittf_tpu_torch.train.losses import infonce_loss, paws_loss
+from vittf_tpu_torch.train.probe import ProbeConfig, ProbeTrainer
 from vittf_tpu_torch.pipeline.features import ExtractConfig, extract_features
 from vittf_tpu_torch.pipeline import session as session_module
 from vittf_tpu_torch.pipeline.ntf import (
@@ -525,6 +550,7 @@ def phase_bilateral(gen):
             ("bls_reblock", lambda: bls_reblock(c, ss)),
             ("copy_reblock", copy_floor((vox + il_b.numel()) // 2)),
             ("bls_unreblock", lambda: bls_unreblock(c_b, ss, shape)),
+            ("copy_unreblock", copy_floor((vox + il_b.numel()) // 2)),
             ("bls_splat_blocked", lambda: bls_splat_blocked(il_b, c_b, tc_b, L, ss)),
             ("index_add_blocked", lambda: acc.zero_().index_add_(0, flat_ids_b, src_b)),
             ("bls_slice_blocked", lambda: bls_slice_blocked(il_b, yl, ss)),
@@ -555,7 +581,8 @@ def phase_bilateral(gen):
         print(f"blocked kernels {shape} C={C} rows {tuple(il_b.shape[1:])}: reblock exact kernel "
               f"{ms('bls_reblock')} plain {times['bls_reblock_plain']} ms copy floor "
               f"{ms('copy_reblock')}; unreblock exact "
-              f"kernel {ms('bls_unreblock')} plain {times['bls_unreblock_plain']} ms; "
+              f"kernel {ms('bls_unreblock')} plain {times['bls_unreblock_plain']} ms copy floor "
+              f"{ms('copy_unreblock')}; "
               f"blocked splat equal to the twin on CPU tensors (the twin on the card is off by "
               f"{splat_b_err}) kernel {ms('bls_splat_blocked')} "
               f"plain {times['bls_splat_blocked_plain']} ms index_add_ "
@@ -656,30 +683,48 @@ def blur_lattice_rows(gen):
 
 
 def reblock_edge_cases(gen):
-    """K6a equal to its twin, output poisoned with NaN first, at X % 4 = 0,
-    1, 2 and 3 (16-byte reads or one word at a time), σ_s 4 and 7, one class
-    and two, int32 with fill -1 and fp32 with fill 0; and an input off a
-    16-byte boundary with X % 4 = 0."""
+    """K6a and K6b equal to their twins, outputs poisoned with NaN first, at
+    X % 4 = 0, 1, 2 and 3 (16-byte accesses or one word at a time), σ_s 4 and
+    7, one class and two, int32 (K6a with fill -1) and fp32 (fill 0). K6b
+    reads blocked arrays drawn whole, so a padded slot it wrongly writes
+    shows. With X % 4 = 0: K6a's input and K6b's input off a 16-byte
+    boundary (the tile's lead), and K6b's output off one (its C entry called
+    on an output view: one word at a time)."""
     n = 0
-    for shape in ((9, 13, 20), (10, 6, 1), (7, 11, 18), (13, 5, 23)):
+    for shape in ((9, 13, 20), (10, 6, 1), (7, 11, 18), (13, 5, 23), (15, 9, 22)):
         for ss in (4, 7):
             for B in (1, 2):
                 bins = torch.randint(0, 60, (B,) + shape, generator=gen, dtype=torch.int32)
                 vals = torch.rand((B,) + shape, generator=gen)
                 for x, fill in ((bins.to("cuda"), -1), (vals.to("cuda"), 0)):
-                    name = f"bls_reblock {B} x {shape} ss {ss} {x.dtype}"
+                    name = f"{B} x {shape} ss {ss} {x.dtype}"
                     out_shape = bls_reblock_plain(x, ss, fill).shape
                     got = poisoned(lambda: bls_reblock(x, ss, fill), out_shape)
-                    assert_equal(name, got, bls_reblock_plain(x, ss, fill))
-                    n += 1
+                    assert_equal(f"bls_reblock {name}", got, bls_reblock_plain(x, ss, fill))
+                    xb = (torch.randint(-60, 60, out_shape, generator=gen, dtype=torch.int32)
+                          if x.dtype == torch.int32 else torch.rand(out_shape, generator=gen))
+                    xb = xb.to("cuda")
+                    back = poisoned(lambda: bls_unreblock(xb, ss, shape), x.shape)
+                    assert_equal(f"bls_unreblock {name}", back, bls_unreblock_plain(xb, ss, shape))
+                    n += 2
                     if shape[2] % 4 == 0:
-                        off = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:]
-                        off = off.view(x.shape)
-                        off.copy_(x)
-                        assert_equal(f"{name}, input off a 16-byte boundary",
+                        off, off_b = (torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
+                                      .view(t.shape).copy_(t) for t in (x, xb))
+                        assert_equal(f"bls_reblock {name}, input off a 16-byte boundary",
                                      poisoned(lambda: bls_reblock(off, ss, fill), out_shape), got)
-    print(f"reblock edge cases: K6a equal to its twin on {n} cases (X % 4 = 0-3, sigma_s 4 and 7, "
-          "1 or 2 classes, int32 and fp32, an input off a 16-byte boundary)")
+                        assert_equal(f"bls_unreblock {name}, input off a 16-byte boundary",
+                                     poisoned(lambda: bls_unreblock(off_b, ss, shape), x.shape),
+                                     back)
+                        out = torch.full((x.numel() + 1,), float("nan"), device="cuda")
+                        out = out.view(x.dtype)[1:].view(x.shape)
+                        _launch("vittf_bls_unreblock", xb.device, xb.data_ptr(), out.data_ptr(),
+                                B, *shape, ss)
+                        assert_equal(f"bls_unreblock {name}, output off a 16-byte boundary",
+                                     out, back)
+                        n += 3
+    print(f"reblock edge cases: K6a and K6b equal to their twins on {n} cases (X % 4 = 0-3, "
+          "sigma_s 4 and 7, 1 or 2 classes, int32 and fp32, inputs and K6b's output off a "
+          "16-byte boundary)")
 
 
 def slice_edge_cases(gen):
@@ -1850,6 +1895,132 @@ def phase_baselines(seed, size=256, per_class=2000, n_check=200_000):
         raise AssertionError(f"baselines path: agreement {agree}, class counts {counts.tolist()}")
 
 
+def card_ms(fn) -> tuple[object, float]:
+    """``fn()``'s result and its wall ms on the host clock, the card
+    synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def to_cuda(tree):
+    """A tree of tensors (dicts, lists, tuples) copied to the card."""
+    if isinstance(tree, dict):
+        return {k: to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cuda(v) for v in tree)
+    return tree.cuda()
+
+
+def check_trees(name, got, want, rtol, atol) -> float:
+    """Every tensor of ``got`` (on the card) within the tolerance of the
+    same leaf of ``want`` (on the CPU); returns the largest |difference|."""
+    if torch.is_tensor(want):
+        return check_close(name, got.cpu(), want, rtol, atol)
+    items = want.items() if isinstance(want, dict) else enumerate(want)
+    return max(check_trees(f"{name}.{k}", got[k], w, rtol, atol) for k, w in items)
+
+
+def phase_foundations(seed, n_crops=4096, ks=7, probe_rows=2048, width=384, n_classes=5):
+    """The trainer foundations on the card, each against the same call on
+    CPU tensors (TF32 off): ``make_multiclass_volume`` at 128³ equal to the
+    CPU result (without and with noise); ``feature_extractor_forward`` and
+    ``pawsnet_forward`` (train and eval, class head on) at the JAX defaults
+    (conv layers 8, 16, 32, hidden 128) on 4096 crops of 7³ at 1e-4, their
+    BN running stats too; ``infonce_loss`` and ``paws_loss`` at 1e-5 and
+    their autograd gradients at 1e-4; one ``ProbeTrainer.fit`` epoch on
+    384-wide features (64 AdamW steps) with a finite, falling loss and
+    parameters within 1e-4 of the CPU run's; a parameter ``.npz`` and a
+    checkpoint written from card tensors and read back equal. Times are one
+    call on the host clock, the card synchronized."""
+    with tempfile.TemporaryDirectory(prefix="vittf_found_") as tmp:
+        return _phase_foundations(seed, Path(tmp), n_crops, ks, probe_rows, width, n_classes)
+
+
+def _phase_foundations(seed, tmp, n_crops, ks, probe_rows, width, n_classes):
+    for noise in (0.0, 0.05):
+        (vol, lab), ms = card_ms(lambda: make_multiclass_volume(128, noise, seed, device="cuda"))
+        want_v, want_l = make_multiclass_volume(128, noise, seed, device="cpu")
+        assert_equal(f"make_multiclass_volume noise {noise}", vol.cpu(), want_v)
+        assert_equal(f"make_multiclass_volume labels noise {noise}", lab.cpu(), want_l)
+        print(f"foundations: make_multiclass_volume 128^3 noise {noise} equal to the CPU run, "
+              f"{ms} ms on the card")
+
+    gen = torch.Generator().manual_seed(seed)
+    cfg = PAWSNetConfig()
+    params, state = init_pawsnet(cfg, gen, device="cpu")
+    crops = torch.randn((n_crops, 1, ks, ks, ks), generator=gen)
+    params_c, state_c, crops_c = (to_cuda(t) for t in (params, state, crops))
+    enc_cfg = FeatureExtractorConfig(1, cfg.conv_layers, (cfg.conv_layers[-1],))
+    got, ms = card_ms(lambda: feature_extractor_forward(params_c["encoder"], crops_c, enc_cfg))
+    err = check_close("feature_extractor_forward", got.cpu(),
+                      feature_extractor_forward(params["encoder"], crops, enc_cfg), 1e-4, 1e-4)
+    print(f"foundations: feature_extractor_forward on {tuple(crops.shape)} -> {tuple(got.shape)} "
+          f"within {err} of the CPU run, {ms} ms on the card")
+    for train in (True, False):
+        (out, new_s), ms = card_ms(lambda: pawsnet_forward(params_c, state_c, crops_c, cfg, train,
+                                                           return_class_pred=True))
+        want, want_s = pawsnet_forward(params, state, crops, cfg, train, return_class_pred=True)
+        err = max(check_trees(f"pawsnet_forward train={train}", out, want, 1e-4, 1e-4),
+                  check_trees(f"pawsnet BN state train={train}", new_s, want_s, 1e-4, 1e-4))
+        print(f"foundations: pawsnet_forward train={train} (feat, pred, class) and BN running "
+              f"stats within {err} of the CPU run, {ms} ms on the card")
+
+    pos, neg = torch.randn((3, 2, 64, 32), generator=gen), torch.randn((3, 16, 1, 32), generator=gen)
+    av, tv = torch.randn((64, 32), generator=gen), torch.randn((64, 32), generator=gen)
+    sup = torch.randn((40, 32), generator=gen)
+    lab = torch.eye(n_classes)[torch.randint(0, n_classes, (40,), generator=gen)]
+    clas = torch.randn((104, n_classes), generator=gen)
+
+    def losses(pos, neg, av, sup, clas, lab, tv):
+        leaves = [t.requires_grad_(True) for t in (pos, neg, av, sup, clas)]
+        vals = (infonce_loss(pos, neg),) + paws_loss(av, sup, lab, tv, sup, lab, clas_pred=clas)
+        sum(vals).backward()
+        return [v.detach() for v in vals], [t.grad for t in leaves]
+
+    inputs = (pos, neg, av, sup, clas, lab, tv)
+    (vals_c, grads_c), ms = card_ms(lambda: losses(*(t.clone().cuda() for t in inputs)))
+    vals, grads = losses(*(t.clone() for t in inputs))
+    err_v = check_trees("infonce_loss / paws_loss", vals_c, vals, 1e-5, 1e-5)
+    err_g = check_trees("loss gradients", grads_c, grads, 1e-4, 1e-4)
+    print(f"foundations: infonce_loss + paws_loss (loss, me-max, class loss) within {err_v}, "
+          f"their gradients within {err_g} of the CPU run, {ms} ms on the card (with backward)")
+
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_classes, width)).astype(np.float32)
+    y = rng.integers(0, n_classes, probe_rows)
+    x = (0.5 * centers[y] + rng.standard_normal((probe_rows, width))).astype(np.float32)
+    pcfg = ProbeConfig(epochs=1)
+    card = ProbeTrainer(width, n_classes, pcfg, seed=seed, device="cuda")
+    host = ProbeTrainer(width, n_classes, pcfg, seed=seed, device="cpu",
+                        params=[{k: v.cpu() for k, v in layer.items()} for layer in card.params])
+    loss_c, ms = card_ms(lambda: card.fit(x, y))
+    loss_h = host.fit(x, y)
+    first, last = float(np.mean(loss_c[:8])), float(np.mean(loss_c[-8:]))
+    if not (np.isfinite(loss_c).all() and last < 0.8 * first):
+        raise AssertionError(f"ProbeTrainer.fit: loss {first} -> {last}")
+    err = max(check_trees("ProbeTrainer params", card.params, host.params, 1e-4, 1e-4),
+              check_close("ProbeTrainer losses", torch.tensor(loss_c), torch.tensor(loss_h),
+                          1e-4, 1e-4))
+    print(f"foundations: ProbeTrainer.fit one epoch on ({probe_rows}, {width}) features, "
+          f"{len(loss_c)} AdamW steps, loss {first} -> {last} (first and last eight), params "
+          f"within {err} of the CPU run, {ms} ms on the card")
+
+    (_, ms) = card_ms(lambda: save_params_npz(tmp / "p.npz", params_c))
+    back = load_params_npz(tmp / "p.npz")
+    check_trees("params .npz round trip", back, params, 0, 0)
+    save_checkpoint(tmp / "ck", {"params": params_c, "state": state_c,
+                                 "opt": card.opt.state_dict(), "step": 1}, 1)
+    ck = restore_checkpoint(tmp / "ck", map_location="cuda")
+    check_trees("checkpoint round trip", ck["params"], params, 0, 0)
+    if ck["step"] != 1 or ck["opt"]["state"][0]["exp_avg"].device.type != "cuda":
+        raise AssertionError("checkpoint round trip: step or optimizer state")
+    print(f"foundations: PAWSNet params .npz ({ms} ms to write) and a checkpoint (params, BN "
+          "state, AdamW state, step) read back equal")
+
+
 def rgb_phantom(size, seed):
     """(target (size³) fp32 in [0, 1], reference (3, size³) uint8): the
     phantom's ellipsoids in three colour channels of distinct mixing."""
@@ -2066,6 +2237,7 @@ def main() -> int:
     entries["chain_gemm"] = phase_chain_gemm()
     n_k9 = phase_probe_path()
     phase_baselines(args.seed)
+    phase_foundations(args.seed)
     with tempfile.TemporaryDirectory(prefix="vittf_smoke_") as tmp:
         n_attn, n_sim, vol, labels, feat_t = phase_main_path(args.seed, Path(tmp))
         n_k3 = phase_fused_path(args.seed, Path(tmp))

@@ -43,12 +43,13 @@ def _blocked_inputs(shape, ss, sl, seed):
     return (bins, c, t * c), blocked
 
 
-@pytest.mark.parametrize("shape", SHAPES + [(6, 9, 16), (9, 5, 1)])
+@pytest.mark.parametrize("shape", SHAPES + [(6, 9, 16), (9, 5, 1), (7, 5, 10), (15, 9, 22)])
 @pytest.mark.parametrize("ss", [4, 7])
 def test_reblock_twins_match_pallas_interpret(shape, ss):
     """K6a and K6b exactly: int32 with fill −1, fp32 with fill 0, two batch
-    entries; the inverse crops back to the volume. Rows of X % 4 == 0 (the
-    K6a kernel's 16-byte reads) and of one voxel (X = 1) too."""
+    entries; the inverse crops back to the volume. Rows of X % 4 = 0, 1, 2
+    and 3 (the kernels' 16-byte accesses or one word at a time) and a volume
+    ragged against σ_s on all three axes, where the K6b kernel crops."""
     raw, want = _blocked_inputs(shape, ss, 5, 0)
     for x, w, fill in zip(raw, want, (-1, 0, 0)):
         xb = torch.from_numpy(np.stack([x, x[::-1].copy()]))

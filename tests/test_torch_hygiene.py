@@ -32,7 +32,9 @@ def test_port_imports_no_jax():
         "        'pipeline.baselines', 'pipeline.compare_sampling', 'pipeline.merge', 'pipeline.tiling',\n"
         "        'ops.query', 'ops.bilateral_sparse', 'models.clip', 'utils.logging', 'utils.flops',\n"
         "        'core.rle', 'core.config', 'utils.polygon', 'utils.timer', 'pipeline.reporting',\n"
-        "        'pipeline.visualize'}\n"
+        "        'pipeline.visualize', 'models.serialization', 'core.synthetic', 'cli.synth',\n"
+        "        'cli.convert_weights', 'models.cnn3d', 'train.utils', 'train.losses',\n"
+        "        'train.gather', 'train.moco', 'train.probe'}\n"
         "assert {'vittf_tpu_torch.' + n for n in need} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'vittf_tpu.')) or m == 'vittf_tpu')\n"
         "assert not bad, bad\n"
@@ -44,19 +46,10 @@ def test_port_imports_no_jax():
 
 
 # the jax-free host modules the port keeps as copies: the same text but for
-# the package name (and, in visualize.py, the import of the trainers' PCA,
-# which the port replaces by a NotImplementedError until they are ported; in
-# rle.py, a machine path in the docstring, which the copy gives relative to
-# the reference's tree)
+# the package name (and, in rle.py, a machine path in the docstring, which the
+# copy gives relative to the reference's tree)
 VERBATIM = ["core/rle.py", "core/config.py", "utils/polygon.py", "utils/timer.py",
             "utils/flops.py", "pipeline/reporting.py", "pipeline/visualize.py"]
-PCA_IMPORT = "    from vittf_tpu_torch.train.utils import project_pca\n"
-PCA_REFUSAL = (
-    "    raise NotImplementedError(\n"
-    '        "plot_pca_features needs train.utils.project_pca, which is ported "\n'
-    '        "with the trainers (ROADMAP.md §A 9)"\n'
-    "    )\n"
-)
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -64,9 +57,6 @@ def test_host_module_is_a_verbatim_copy(rel):
     import re
 
     want = re.sub(r"vittf_tpu\b", "vittf_tpu_torch", (REPO / "vittf_tpu" / rel).read_text())
-    if rel == "pipeline/visualize.py":
-        assert PCA_IMPORT in want
-        want = want.replace(PCA_IMPORT, PCA_REFUSAL)
     if rel == "core/rle.py":
         want = want.replace("``/" + "root/reference/old/", "``old/")
     assert (REPO / "vittf_tpu_torch" / rel).read_text() == want

@@ -97,6 +97,45 @@ def test_annotations_from_labels_same_coordinates(mode):
             np.testing.assert_array_equal(got[k], want[k])
 
 
+@pytest.mark.parametrize("mode", ["uniform", "surface", "both"])
+def test_host_samplers_equal_the_device_ones(mode):
+    """``impl='host'`` (argwhere + ``rng.choice`` on the host) equals the
+    device path and both JAX paths bit for bit, for a tensor mask and a
+    numpy one, and through ``annotations_from_labels``."""
+    lab = np.zeros((20, 20, 20), np.uint8)
+    lab[2:14, 3:15, 4:16] = 1
+    lab[10:19, 10:19, 1:9] = 2
+    mask = lab == 1
+    fn, kw = ta.SAMPLING_MODES[mode], ({"dist_from_surface": 2} if mode != "uniform" else {})
+    jfn = ja.SAMPLING_MODES[mode]
+    dev = fn(torch.from_numpy(mask), 30, rng=np.random.default_rng(7), **kw)
+    for m in (torch.from_numpy(mask), mask):
+        host = fn(m, 30, rng=np.random.default_rng(7), impl="host", **kw)
+        assert host.dtype == dev.dtype == np.int64
+        np.testing.assert_array_equal(host, dev)
+    for impl in ("host", "device"):
+        np.testing.assert_array_equal(
+            jfn(mask, 30, rng=np.random.default_rng(7), impl=impl, **kw), dev)
+    for n in (25, 0.05):
+        want = ja.annotations_from_labels(lab, n, mode, rng=np.random.default_rng(3), impl="host")
+        got = ta.annotations_from_labels(lab, n, mode, rng=np.random.default_rng(3), impl="host")
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    with pytest.raises(ValueError, match="impl"):
+        fn(mask, 3, impl="pallas")
+
+
+def test_host_sampler_thinning_equals_device(monkeypatch):
+    """The >THIN_LIMIT stride-2 thinning on the host path, at a lowered limit."""
+    monkeypatch.setattr(ta, "THIN_LIMIT", 50)
+    mask = np.random.default_rng(1).random((9, 9, 9)) > 0.4
+    host = ta.sample_uniform(mask, 20, True, rng=np.random.default_rng(11), impl="host")
+    dev = ta.sample_uniform(torch.from_numpy(mask), 20, True, rng=np.random.default_rng(11))
+    np.testing.assert_array_equal(host, dev)
+    assert (host[:, 0] * 81 + host[:, 1] * 9 + host[:, 2]).max() < mask.size
+
+
 def test_surface_shell_matches_jax(rng):
     mask = rng.random((12, 13, 14)) > 0.3
     want = ja.surface_shell(mask, 2)

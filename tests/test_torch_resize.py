@@ -47,6 +47,18 @@ def test_resize_cubic_scaled_matches_jax(g, hw):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape,size", [((1, 3, 7, 9), (13, 5)), ((2, 4, 6), (11,)),
+                                        ((1, 2, 5, 8, 4), (7, 3, 4)), ((1, 1, 12, 12), (12, 6))])
+def test_resize_cubic_matches_jax(shape, size):
+    """At the tolerance of ``resize_cubic_scaled`` above: the same weight
+    matrices, fp32 sums in another order."""
+    x = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+    want = np.asarray(jr.resize_cubic(jnp.asarray(x), size))
+    got = tr.resize_cubic(torch.from_numpy(x), size).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize(
     "shape,size", [((4, 12, 16, 20), (3, 4, 5)), ((2, 7, 9, 5), (4, 4, 4)), ((3, 8, 8, 8), (8, 8, 8))]
 )

@@ -386,8 +386,18 @@ def test_load_lavis_model_raises_without_lavis(monkeypatch):
 
 
 def test_plot_pca_features_names_the_missing_trainers(tmp_path):
-    with pytest.raises(NotImplementedError, match="§A 9"):
-        tviz.plot_pca_features(np.zeros((4, 2, 2, 2), np.float32), tmp_path / "p.png")
+    """The trainers' ``project_pca`` is ported, so the PCA plot runs in the
+    port: the counterpart of ``tests/test_visualize.py::
+    test_pca_features_plot``, the same image as the JAX package's."""
+    from vittf_tpu.pipeline import visualize as jviz
+
+    fv = np.random.default_rng(0).standard_normal((8, 6, 10, 10)).astype(np.float32)
+    out = tviz.plot_pca_features(fv, tmp_path / "p.png")
+    assert out.exists() and out.stat().st_size > 1000
+    want = jviz.plot_pca_features(fv, tmp_path / "j.png")
+    import matplotlib.image as mpimg
+
+    np.testing.assert_allclose(mpimg.imread(out), mpimg.imread(want), atol=1 / 255)
 
 
 # ---------- user-study evaluator, batch ----------

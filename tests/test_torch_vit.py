@@ -145,13 +145,14 @@ def test_registry_matches_jax():
 
 def test_load_dino_checkpoint_and_npz(tmp_path, tiny_pair):
     from vittf_tpu.models.serialization import save_params_npz
+    from vittf_tpu_torch.models.serialization import load_params_npz
 
     tmodel, params = tiny_pair
     pth = tmp_path / "ckpt.pth"
     torch.save({"teacher": {f"backbone.{k}": v for k, v in tmodel.state_dict().items()}}, pth)
     sd = tdino.load_dino_checkpoint(pth, port_cfg(TINY))
     npz = save_params_npz(tmp_path / "params.npz", params)
-    sd2 = tdino.load_params_npz(npz)
+    sd2 = tdino.params_from_jax(load_params_npz(npz))
     for key, val in tmodel.state_dict().items():
         torch.testing.assert_close(sd[key], val, rtol=0, atol=0)
         torch.testing.assert_close(sd2[key], val, rtol=0, atol=0)

@@ -101,13 +101,14 @@ def select_device(cpu: bool) -> torch.device:
 
 
 def load_params(args, cfg) -> dict[str, torch.Tensor]:
-    from vittf_tpu_torch.models.dino import load_dino_checkpoint, load_params_npz
+    from vittf_tpu_torch.models.dino import load_dino_checkpoint, params_from_jax
+    from vittf_tpu_torch.models.serialization import load_params_npz
     from vittf_tpu_torch.models.vit import init_vit_params
 
     if args.weights:
         wp = Path(args.weights)
         if wp.suffix == ".npz":
-            return load_params_npz(wp)
+            return params_from_jax(load_params_npz(wp))
         return load_dino_checkpoint(wp, cfg)
     print(
         "WARNING: no --weights given; using random initialization "

@@ -16,31 +16,41 @@
 // no lattice vertex), 0 for the value planes.
 //
 // K6a reblock.   Replaces vittf_tpu/ops/bilateral.py::_reblock3d_pallas.
-//   Bound: one read and one write, 8 bytes per voxel. K6b's design (one block
-//   a slab, chunks of 32 x positions, two divisions by runtime divisors per
-//   element, 4-byte accesses) is bound by instruction issue here. So a block
+//   Bound: one read and one write, 8 bytes per voxel. The first design (one
+//   block a slab, chunks of 32 x positions, two divisions by runtime divisors
+//   per element, 4-byte accesses) was bound by instruction issue. So a block
 //   takes a chunk of W x positions of one (cy, cz, b) slab: the slab's row of
 //   Xp = NCX*ss positions is split evenly into chunks of at most kReblockWidth,
-//   W a multiple of 4, so no chunk is a sliver. The chunk's output is one
-//   contiguous span of W*P words (P = ss*ss), and the block's shared-memory
-//   tile holds it in that layout, placed so that its 16-byte units fall where
-//   the span's do in device memory. Reads: with X % 4 == 0 (and the volume
-//   16-byte aligned) a thread loads 16-byte runs of four x positions of one
-//   row and writes their four words into the tile P apart; otherwise one word
-//   at a time, 32 consecutive x of a row a warp. A thread's first (row, run)
-//   is divided out once; after that it steps by adds. Rows and x past the
-//   volume are filled by index. After one barrier the span is written as
-//   16-byte runs from the tile, its head and tail a word at a time. Plain
-//   stores: the solve reads the blocked planes again at once.
+//   W a multiple of 4, so no chunk is a sliver (reblock_setup, shared with
+//   K6b). The chunk's output is one contiguous span of W*P words (P = ss*ss),
+//   and the block's shared-memory tile holds it in that layout, placed so that
+//   its 16-byte units fall where the span's do in device memory (Chunk). Reads:
+//   with X % 4 == 0 (and the volume 16-byte aligned) a thread loads 16-byte
+//   runs of four x positions of one row and writes their four words into the
+//   tile P apart; otherwise one word at a time, 32 consecutive x of a row a
+//   warp. A thread's first (row, run) is divided out once; after that it steps
+//   by adds (ChunkItems). Rows and x past the volume are filled by index.
+//   After one barrier the span is written as 16-byte runs from the tile, its
+//   head and tail a word at a time. Plain stores: the solve reads the blocked
+//   planes again at once.
 // K6b unreblock. Replaces vittf_tpu/ops/bilateral.py::_unreblock3d_pallas.
-//   One block per (cy, cz, b) slab of ss x ss x X words. The slab is walked in
-//   chunks of 32 x positions: the chunk is read with x fastest (coalesced,
-//   128-byte segments), staged in a shared-memory tile of ss*ss rows padded to
-//   33 words (conflict-free in both directions) and written as 32 output rows
-//   of ss*ss words, which are contiguous in the blocked array. Elements are
-//   moved as 32-bit words, so one kernel serves the int32 bins and the fp32
-//   planes; the ragged z/y/x edge is cropped by index, so no padded copy of
-//   the volume is made. Bound: one read and one write, 8 bytes per voxel.
+//   Bound: one read and one write, 8 bytes per voxel. K6a's design in
+//   reverse (the first design, one block a slab walked 32 x positions at a
+//   time, read 0.058 ms at five 128³ fp32 planes, 2.2x its bound): a block
+//   takes the same chunk of a slab; its span of W*P blocked words is read as
+//   16-byte loads into the tile in the span's layout, head and tail a word at
+//   a time. After one barrier each thread writes output rows (dz, dy) of the
+//   chunk: 16-byte runs of four x positions, gathered from tile words P
+//   apart, where X % 4 == 0 and the output is 16-byte aligned; otherwise one
+//   word at a time, 32 consecutive x of a row a warp. Rows z >= Z, y >= Y and
+//   positions x >= X are cropped by index, never written. At odd ss a run's
+//   four words are P apart, P odd; at ss 4 (P = 16) they share a bank (no
+//   solve of the port takes ss 4 on this kernel). 0.0367 ms at five 128³
+//   fp32 planes, 1.05x a copy of its bytes and 1.38x its bound (H100 80GB
+//   HBM3, 700 W, ten calls an event pair); streaming loads, streaming stores,
+//   chunks of 128 or fewer positions, and reads rotated against bank
+//   conflicts each measured slower. Both kernels move 32-bit words, so one
+//   kernel serves the int32 bins and the fp32 planes.
 // K7a blocked splat. Replaces vittf_tpu/ops/bilateral.py::_splat_pallas.
 //   out[b, 0, cell, l] = #pixels of the cell in bin l, out[b, 1] = sum c,
 //   out[b, 2] = sum t*c. One warp per cell: its G*PB pixels are contiguous, the
@@ -72,13 +82,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;             // K6b: x positions staged per tile
-constexpr int kPitch = kChunk + 1;     // K6b: tile row pitch in words
-constexpr int kReblockWidth = 128;     // K6a: the most x positions a block takes
+// K6: the most x positions a block takes. At the 128³ crops of the blocked
+// path (Xp = 133 at ss 7) a chunk is a whole slab row, so K6b writes whole
+// 512-byte rows (128 took two chunks a row: K6b 4% slower, K6a 1.5% faster)
+constexpr int kReblockWidth = 136;
 constexpr int kMaxSmemBytes = 232448;  // what one Hopper block may use
 constexpr int kDefaultSmemBytes = 49152;
 
-// K6a's walk over the tile rows p = dz * ss + dy of a slab, by adds: a
+// The walk over the tile rows p = dz * ss + dy of a slab, by adds: a
 // thread's first row is divided out once, then it steps.
 struct SlabRow {
   int p, dz, dy;
@@ -94,30 +105,64 @@ struct SlabRow {
   }
 };
 
+// A thread's items (row p, column unit u) of a chunk's P x cols grid,
+// p-major, kThreads apart; a unit is 4 x positions (16-byte accesses) or 1.
+struct ChunkItems {
+  SlabRow row;
+  int u;
+  const int cols, step_p, step_u, adz, ady;
+  __device__ __forceinline__ ChunkItems(int cols_, int ss)
+      : row(threadIdx.x / cols_, ss), u(threadIdx.x % cols_), cols(cols_),
+        step_p(kThreads / cols_), step_u(kThreads - step_p * cols_), adz(step_p / ss),
+        ady(step_p - adz * ss) {}
+  __device__ __forceinline__ void next(int ss) {
+    row.skip(step_p, adz, ady, ss);
+    if ((u += step_u) >= cols) u -= cols, row.next(ss);
+  }
+};
+
+// The span of a (cy, cz, b) slab's blocked rows that block blockIdx takes:
+// n = nx * P contiguous words from x position x0 of the slab, held in the
+// shared tile at tile[lead + j] so that the tile's 16-byte units fall where
+// the span's do in device memory.
+struct Chunk {
+  int cy, cz, b, x0, nx, n, lead;
+  int64_t span;  // the span's first word in the blocked array
+  __device__ __forceinline__ Chunk(int P, int NCY, int NCX, int ss, int64_t n_slabs, int W,
+                                   int n_chunks, uintptr_t blocked) {
+    cy = blockIdx.x / n_chunks;
+    x0 = (blockIdx.x - cy * n_chunks) * W;
+    cz = blockIdx.y, b = blockIdx.z;
+    const int Xp = NCX * ss;
+    nx = min(W, Xp - x0), n = nx * P;
+    span = ((b * n_slabs + (int64_t)cz * NCY + cy) * Xp + x0) * P;
+    lead = (int)(((blocked >> 2) + span) & 3);
+  }
+  // the span's head up to its first 16-byte boundary and its runs of 4 words
+  __device__ __forceinline__ int head() const { return min((4 - lead) & 3, n); }
+  __device__ __forceinline__ int runs() const { return (n - head()) / 4; }
+  // the word thread t < 8 moves one at a time, or n: t < 4 the head, else the tail
+  __device__ __forceinline__ int scalar(int t) const {
+    return t < 4 ? (t < head() ? t : n) : head() + 4 * runs() + t - 4;
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 bls_reblock_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int Z, int Y,
                    int X, int ss, int NCY, int NCX, uint32_t fill, int64_t n_slabs, int W,
                    int n_chunks, int vec) {
   extern __shared__ __align__(16) uint32_t tile[];  // span word j at tile[lead + j]
-  const int cy = blockIdx.x / n_chunks, chunk = blockIdx.x - cy * n_chunks;
-  const int cz = blockIdx.y, b = blockIdx.z;
-  const int P = ss * ss, Xp = NCX * ss;
-  const int z0 = cz * ss, y0 = cy * ss, x0 = chunk * W, nx = min(W, Xp - x0);
-  const uint32_t* xb = x + (int64_t)b * Z * Y * X;
-  uint32_t* span = out + ((b * n_slabs + (int64_t)cz * NCY + cy) * Xp + x0) * P;
-  const int lead = (int)((reinterpret_cast<uintptr_t>(span) >> 2) & 3);
-  // a thread's items (row p, column unit u) of the rows x cols grid, p-major;
-  // a unit is 4 x positions (vec) or 1
-  const int unit = vec ? 4 : 1, cols = W / unit;
-  const int step_p = kThreads / cols, step_u = kThreads - step_p * cols;
-  const int adz = step_p / ss, ady = step_p - adz * ss;
-  int u = threadIdx.x % cols;
-  SlabRow row(threadIdx.x / cols, ss);
-  while (row.p < P) {
-    const int z = z0 + row.dz, y = y0 + row.dy, xc = u * unit, xx = x0 + xc;
+  const int P = ss * ss;
+  const Chunk ch(P, NCY, NCX, ss, n_slabs, W, n_chunks, reinterpret_cast<uintptr_t>(out));
+  const int z0 = ch.cz * ss, y0 = ch.cy * ss, x0 = ch.x0, lead = ch.lead;
+  const uint32_t* xb = x + (int64_t)ch.b * Z * Y * X;
+  uint32_t* span = out + ch.span;
+  const int unit = vec ? 4 : 1;
+  for (ChunkItems it(W / unit, ss); it.row.p < P; it.next(ss)) {
+    const int z = z0 + it.row.dz, y = y0 + it.row.dy, xc = it.u * unit, xx = x0 + xc;
     const bool inside = z < Z && y < Y && xx < X;
     const int64_t src = ((int64_t)z * Y + y) * X + xx;
-    uint32_t* t = tile + lead + xc * P + row.p;  // x position xc of the span, lane p
+    uint32_t* t = tile + lead + xc * P + it.row.p;  // x position xc of the span, lane p
     if (vec) {  // X % 4 == 0: xx < X puts the whole run inside the row
       const uint4 v = inside ? __ldg(reinterpret_cast<const uint4*>(xb + src))
                              : make_uint4(fill, fill, fill, fill);
@@ -125,48 +170,51 @@ bls_reblock_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, i
     } else {
       t[0] = inside ? __ldg(xb + src) : fill;
     }
-    row.skip(step_p, adz, ady, ss);
-    if ((u += step_u) >= cols) u -= cols, row.next(ss);
   }
   __syncthreads();
-  // the span's nx * P words: a head up to the first 16-byte boundary, 16-byte
-  // runs, a tail
-  const int n = nx * P, head = min((4 - lead) & 3, n), runs = (n - head) / 4;
+  const int head = ch.head(), runs = ch.runs();
   for (int r = threadIdx.x; r < runs; r += kThreads) {
     const int j = head + 4 * r;
     *reinterpret_cast<uint4*>(span + j) = *reinterpret_cast<const uint4*>(tile + lead + j);
   }
-  const int t = threadIdx.x;
-  if (t < 8) {
-    const int j = t < 4 ? (t < head ? t : n) : head + 4 * runs + t - 4;
-    if (j < n) span[j] = tile[lead + j];
+  if (threadIdx.x < 8) {
+    const int j = ch.scalar(threadIdx.x);
+    if (j < ch.n) span[j] = tile[lead + j];
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 bls_unreblock_kernel(const uint32_t* __restrict__ xb, uint32_t* __restrict__ out, int Z, int Y,
-                     int X, int ss, int NCY, int NCX, int64_t n_slabs) {
-  extern __shared__ uint32_t tile[];  // [ss*ss][kPitch]
-  const int cy = blockIdx.x, cz = blockIdx.y, b = blockIdx.z;
-  const int P = ss * ss, Xp = NCX * ss;
-  const int z0 = cz * ss, y0 = cy * ss;
-  const uint32_t* ib = xb + ((int64_t)b * n_slabs + (int64_t)cz * NCY + cy) * Xp * P;
-  uint32_t* ob = out + (int64_t)b * Z * Y * X;
-  for (int x0 = 0; x0 < X; x0 += kChunk) {
-    const int nx = min(kChunk, X - x0);
-    for (int i = threadIdx.x; i < nx * P; i += kThreads) {
-      const int r = i / P, p = i - r * P;
-      tile[p * kPitch + r] = ib[(int64_t)(x0 + r) * P + p];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < P * kChunk; i += kThreads) {
-      const int p = i / kChunk, xc = i - p * kChunk;
-      const int dz = p / ss, dy = p - dz * ss;
-      const int z = z0 + dz, y = y0 + dy;
-      if (z < Z && y < Y && xc < nx)
-        ob[((int64_t)z * Y + y) * X + x0 + xc] = tile[p * kPitch + xc];
-    }
-    __syncthreads();
+                     int X, int ss, int NCY, int NCX, int64_t n_slabs, int W, int n_chunks,
+                     int vec) {
+  extern __shared__ __align__(16) uint32_t tile[];  // span word j at tile[lead + j]
+  const int P = ss * ss;
+  const Chunk ch(P, NCY, NCX, ss, n_slabs, W, n_chunks, reinterpret_cast<uintptr_t>(xb));
+  const int lead = ch.lead, head = ch.head(), runs = ch.runs();
+  const uint32_t* span = xb + ch.span;
+  // plain loads: a span's first and last 32-byte sectors are its neighbours'
+  // too, which streaming loads (__ldcs) evict before they are read again
+#pragma unroll 4
+  for (int r = threadIdx.x; r < runs; r += kThreads) {
+    const int k = head + 4 * r;
+    *reinterpret_cast<uint4*>(tile + lead + k) = __ldg(reinterpret_cast<const uint4*>(span + k));
+  }
+  if (threadIdx.x < 8) {
+    const int k = ch.scalar(threadIdx.x);
+    if (k < ch.n) tile[lead + k] = __ldg(span + k);
+  }
+  __syncthreads();
+  const int z0 = ch.cz * ss, y0 = ch.cy * ss, unit = vec ? 4 : 1;
+  uint32_t* ob = out + (int64_t)ch.b * Z * Y * X;
+  for (ChunkItems w(W / unit, ss); w.row.p < P; w.next(ss)) {
+    const int z = z0 + w.row.dz, y = y0 + w.row.dy, wc = w.u * unit, wx = ch.x0 + wc;
+    if (z >= Z || y >= Y || wx >= X) continue;  // the ragged edge is cropped, never written
+    const uint32_t* s = tile + lead + wc * P + w.row.p;
+    uint32_t* o = ob + ((int64_t)z * Y + y) * X + wx;
+    if (vec)  // X % 4 == 0: wx < X puts the whole run inside the row
+      *reinterpret_cast<uint4*>(o) = make_uint4(s[0], s[P], s[2 * P], s[3 * P]);
+    else
+      *o = s[0];
   }
 }
 
@@ -235,18 +283,33 @@ bls_slice_blocked_kernel(const int* __restrict__ il, const float* __restrict__ y
 
 inline int cells(int S, int ss) { return (S - 1) / ss + 1; }
 
-// Checks shared by K6a and K6b; sets the tile's size and returns a CUDA error.
+// K6a's and K6b's chunking, with the checks both share: a slab's Xp = NCX*ss
+// x positions split evenly into chunks of at most kReblockWidth (fewer where
+// the tile would not fit), W a multiple of 4, so no chunk is a sliver; the
+// tile holds W*P words and a lead of up to 3. Sets the kernel's dynamic
+// shared memory size; returns a CUDA error.
+struct Chunking {
+  int W, n_chunks;
+  int64_t smem;
+};
+
 template <typename Kernel>
-int reblock_setup(Kernel kernel, int B, int Z, int Y, int X, int ss, int64_t* smem) {
+int reblock_setup(Kernel kernel, int B, int Z, int Y, int X, int ss, Chunking* c) {
   if (B < 1 || B > 65535 || Z < 1 || Y < 1 || X < 1 || ss < 1)
     return (int)cudaErrorInvalidValue;
-  *smem = (int64_t)ss * ss * kPitch * sizeof(uint32_t);
-  const int64_t slab = (int64_t)ss * ss * cells(X, ss) * ss;
-  if (*smem > kMaxSmemBytes || cells(Z, ss) > 65535 || slab > INT32_MAX)
+  const int64_t P = (int64_t)ss * ss, Xp = (int64_t)cells(X, ss) * ss;
+  const int64_t widest = std::min<int64_t>(kReblockWidth, (kMaxSmemBytes / 4 - 4) / P) & ~3;
+  if (cells(Z, ss) > 65535 || P * Xp > INT32_MAX || widest < 4)
     return (int)cudaErrorInvalidValue;
-  if (*smem > kDefaultSmemBytes)
+  const int64_t pieces = (Xp + widest - 1) / widest;
+  c->W = (int)(((Xp + pieces - 1) / pieces + 3) & ~3);
+  const int64_t n_chunks = (Xp + c->W - 1) / c->W;
+  if (n_chunks * cells(Y, ss) > INT32_MAX) return (int)cudaErrorInvalidValue;
+  c->n_chunks = (int)n_chunks;
+  c->smem = (c->W * P + 4) * (int64_t)sizeof(uint32_t);
+  if (c->smem > kDefaultSmemBytes)
     return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)*smem);
+                                     (int)c->smem);
   return (int)cudaSuccess;
 }
 
@@ -257,43 +320,32 @@ int reblock_setup(Kernel kernel, int B, int Z, int Y, int X, int ss, int64_t* sm
 // Returns cudaGetLastError() after the launch.
 extern "C" int vittf_bls_reblock(const void* x, void* out, int B, int Z, int Y, int X, int ss,
                                  unsigned fill_bits, void* stream) {
-  if (B < 1 || B > 65535 || Z < 1 || Y < 1 || X < 1 || ss < 1 ||
-      (reinterpret_cast<uintptr_t>(out) & 15))
-    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) & 15) return (int)cudaErrorInvalidValue;
+  Chunking c;
+  const int e = reblock_setup(bls_reblock_kernel, B, Z, Y, X, ss, &c);
+  if (e != 0) return e;
   const int NCZ = cells(Z, ss), NCY = cells(Y, ss), NCX = cells(X, ss);
-  const int64_t P = (int64_t)ss * ss, Xp = (int64_t)NCX * ss;
-  // chunks: Xp split evenly into pieces of at most kReblockWidth x positions
-  // (fewer where the tile would not fit), each a multiple of 4
-  const int64_t widest = std::min<int64_t>(kReblockWidth, (kMaxSmemBytes / 4 - 4) / P) & ~3;
-  if (NCZ > 65535 || P * Xp > INT32_MAX || widest < 4) return (int)cudaErrorInvalidValue;
-  const int64_t pieces = (Xp + widest - 1) / widest;
-  const int W = (int)(((Xp + pieces - 1) / pieces + 3) & ~3);
-  const int64_t n_chunks = (Xp + W - 1) / W, smem = (W * P + 4) * (int64_t)sizeof(uint32_t);
-  if (n_chunks * NCY > INT32_MAX) return (int)cudaErrorInvalidValue;
-  if (smem > kDefaultSmemBytes) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bls_reblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const int vec = X % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const dim3 grid((unsigned)(n_chunks * NCY), NCZ, B);
-  bls_reblock_kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((unsigned)(c.n_chunks * NCY), NCZ, B);
+  bls_reblock_kernel<<<grid, kThreads, (size_t)c.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), Z, Y, X, ss, NCY, NCX,
-      fill_bits, (int64_t)NCZ * NCY, W, (int)n_chunks, vec);
+      fill_bits, (int64_t)NCZ * NCY, c.W, c.n_chunks, vec);
   return (int)cudaGetLastError();
 }
 
 // xb (B, NCZ*NCY*NCX*ss, ss*ss) and out (B, Z, Y, X): contiguous 32-bit words.
+// Rows are written 16 bytes wide where X % 4 == 0 and out is 16-byte aligned.
 extern "C" int vittf_bls_unreblock(const void* xb, void* out, int B, int Z, int Y, int X,
                                    int ss, void* stream) {
-  int64_t smem = 0;
-  const int e = reblock_setup(bls_unreblock_kernel, B, Z, Y, X, ss, &smem);
+  Chunking c;
+  const int e = reblock_setup(bls_unreblock_kernel, B, Z, Y, X, ss, &c);
   if (e != 0) return e;
   const int NCZ = cells(Z, ss), NCY = cells(Y, ss), NCX = cells(X, ss);
-  const dim3 grid(NCY, NCZ, B);
-  bls_unreblock_kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+  const int vec = X % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const dim3 grid((unsigned)(c.n_chunks * NCY), NCZ, B);
+  bls_unreblock_kernel<<<grid, kThreads, (size_t)c.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(xb), static_cast<uint32_t*>(out), Z, Y, X, ss, NCY, NCX,
-      (int64_t)NCZ * NCY);
+      (int64_t)NCZ * NCY, c.W, c.n_chunks, vec);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,9 @@
 Port of ``vittf_tpu/models/dino.py``. The port keeps weights in the hub
 ``state_dict`` layout, so a DINO ``.pth`` loads as it is; ``params_from_jax``
 turns the JAX package's parameter pytree (the inverse of its
-``convert_torch_state_dict``) into that layout.
+``convert_torch_state_dict``) into that layout, and ``params_to_jax`` back.
+A flat-key ``.npz`` of JAX params: ``params_from_jax(models.serialization.
+load_params_npz(path))``.
 """
 from __future__ import annotations
 
@@ -111,16 +113,38 @@ def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def load_params_npz(path: str | Path) -> dict[str, torch.Tensor]:
-    """JAX flat-npz params (``blocks.3.qkv.kernel`` → array) → ``state_dict``."""
-    root: dict = {}
-    with np.load(path) as flat:
-        for key in flat.files:
-            parts = key.split(".")
-            node = root
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = flat[key]
-    blocks = root.get("blocks", {})
-    root["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
-    return params_from_jax(root)
+def params_to_jax(sd: dict[str, torch.Tensor]) -> dict:
+    """Hub-layout ``state_dict`` → the JAX package's parameter tree (numpy
+    leaves), as its ``convert_torch_state_dict`` makes it: the inverse of
+    ``params_from_jax``; ``models.serialization.save_params_npz`` writes it
+    in the JAX package's ``.npz`` layout."""
+    def n(key):
+        return sd[key].detach().float().cpu().numpy()
+
+    def linear(prefix):
+        return {"kernel": np.ascontiguousarray(n(f"{prefix}.weight").T), "bias": n(f"{prefix}.bias")}
+
+    def ln(prefix):
+        return {"scale": n(f"{prefix}.weight"), "bias": n(f"{prefix}.bias")}
+
+    params = {
+        "patch_embed": {
+            "kernel": np.ascontiguousarray(n("patch_embed.proj.weight").transpose(2, 3, 1, 0)),
+            "bias": n("patch_embed.proj.bias"),
+        },
+        "cls_token": n("cls_token"),
+        "pos_embed": n("pos_embed"),
+        "blocks": [],
+        "norm": ln("norm"),
+    }
+    depth = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+    for i in range(depth):
+        b = f"blocks.{i}"
+        blk = {"norm1": ln(f"{b}.norm1"), "norm2": ln(f"{b}.norm2"),
+               "qkv": linear(f"{b}.attn.qkv"), "proj": linear(f"{b}.attn.proj"),
+               "fc1": linear(f"{b}.mlp.fc1"), "fc2": linear(f"{b}.mlp.fc2")}
+        if f"{b}.ls1.gamma" in sd:
+            blk["ls1"] = n(f"{b}.ls1.gamma")
+            blk["ls2"] = n(f"{b}.ls2.gamma")
+        params["blocks"].append(blk)
+    return params

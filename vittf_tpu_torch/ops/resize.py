@@ -127,6 +127,16 @@ def resize_linear(x: torch.Tensor, size: tuple[int, ...]) -> torch.Tensor:
     return x
 
 
+def resize_cubic(x: torch.Tensor, size: tuple[int, ...]) -> torch.Tensor:
+    """Bicubic resize of the trailing axes, align_corners=False, torch parity
+    (A=-0.75)."""
+    for axis, out_size in zip(_spatial_axes(x.ndim, len(size)), size):
+        in_size = x.shape[axis]
+        if in_size != out_size:
+            x = _apply_axis_matrix(x, _cubic_weight_matrix(in_size, out_size), axis)
+    return x
+
+
 def resize_cubic_scaled(
     x: torch.Tensor, size: tuple[int, ...], coord_scales: tuple[float, ...]
 ) -> torch.Tensor:

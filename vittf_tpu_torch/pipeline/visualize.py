@@ -85,10 +85,7 @@ def plot_pca_features(
 ) -> Path:
     """PCA(3) projection of a (F, W, H, D) feature volume rendered as an
     RGB slice (old/train.py's PCA visualization)."""
-    raise NotImplementedError(
-        "plot_pca_features needs train.utils.project_pca, which is ported "
-        "with the trainers (ROADMAP.md §A 9)"
-    )
+    from vittf_tpu_torch.train.utils import project_pca
 
     plt = _plt()
     f = np.asarray(feat_vol)

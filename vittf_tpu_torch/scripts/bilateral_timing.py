@@ -4,7 +4,7 @@ on the card, at the shapes of ``chip_smoke.py``'s bilateral phases: five
 the 2-D solver's (σ_s 24, σ_l 4). The blur (K8) is also timed at the lattice
 of the whole-grid refinement (``bls_blur_wholegrid``: a 256³ grid, as many
 classes as one chunk of ``pipeline/refine.py`` holds, 42 MB) and of the 2-D
-solver (``bls_blur_2d``). K8's and K6a's yardstick is a copy floor
+solver (``bls_blur_2d``). K8's, K6a's and K6b's yardstick is a copy floor
 (``copy_*``): ``out.copy_(src)`` of as many bytes as the kernel reads and
 writes, the least any pass over them can take; it is not a library call for
 the kernel's function (none exists).
@@ -119,7 +119,7 @@ def load_timing():
 def cases(bl, copy_floor) -> list[tuple[str, str | None, object, object, int]]:
     """(kernel name, yardstick name, kernel call, yardstick call, bytes the
     kernel must move) at the phases' shapes, inputs made beforehand;
-    ``copy_floor`` makes the copies timed beside K8 and K6a."""
+    ``copy_floor`` makes the copies timed beside K8, K6a and K6b."""
     gen = torch.Generator().manual_seed(0)
     shape = (SIZE,) * 3
     luma = torch.randint(0, 256, (C,) + shape, generator=gen).float().cuda()
@@ -171,8 +171,8 @@ def cases(bl, copy_floor) -> list[tuple[str, str | None, object, object, int]]:
          8 * lat2.numel()),
         ("bls_reblock", "copy_reblock", lambda: bl.bls_reblock(c, SS),
          copy_floor((vox + slots) // 2), 4 * (vox + slots)),
-        ("bls_unreblock", None, lambda: bl.bls_unreblock(c_b, SS, shape), None,
-         4 * (vox + slots)),
+        ("bls_unreblock", "copy_unreblock", lambda: bl.bls_unreblock(c_b, SS, shape),
+         copy_floor((vox + slots) // 2), 4 * (vox + slots)),
         ("bls_splat_blocked", "index_add_blocked",
          lambda: bl.bls_splat_blocked(il_b, c_b, tc_b, L, SS),
          lambda: acc.zero_().index_add_(0, flat_b, src_b), 4 * (3 * slots + 3 * lattice)),

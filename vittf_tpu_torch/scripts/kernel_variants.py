@@ -1,7 +1,7 @@
 """Build edited copies of the CUDA sources on the card and run a check or a
 timer with each: the planted faults that show a kernel check catches a wrong
 kernel, and the ablations behind the notes on what bounds K1, K2, the GEMM
-body of K3 and K9, K8 and K6a.
+body of K3 and K9, K8, K6a and K6b.
 
     python3 -m vittf_tpu_torch.scripts.kernel_variants faults [--only K1[,K2...]]
     python3 -m vittf_tpu_torch.scripts.kernel_variants attention-ablation
@@ -138,15 +138,32 @@ FAULTS = [
     ("K8 z+1 and z-1 added in swapped order", "bilateral",
      [(BL, "o.x = sum9(p.center, c.x, zp.x, zm.x,", "o.x = sum9(p.center, c.x, zm.x, zp.x,")]),
     ("K6a a lane's source row one off in dy", "bilateral",
-     [(RB, "const int z = z0 + row.dz, y = y0 + row.dy, xc = u * unit, xx = x0 + xc;",
-       "const int z = z0 + row.dz, y = y0 + max(row.dy - 1, 0), xc = u * unit, xx = x0 + xc;")]),
-    ("K6a the last partial chunk dropped", "bilateral",
-     [(RB, "const int64_t n_chunks = (Xp + W - 1) / W,", "const int64_t n_chunks = Xp / W,")]),
-    ("K6a a span's head word dropped", "bilateral",
-     [(RB, "const int j = t < 4 ? (t < head ? t : n)", "const int j = t < 4 ? (t + 1 < head ? t : n)")]),
+     [(RB, "const int z = z0 + it.row.dz, y = y0 + it.row.dy, xc = it.u * unit, xx = x0 + xc;",
+       "const int z = z0 + it.row.dz, y = y0 + max(it.row.dy - 1, 0), xc = it.u * unit, "
+       "xx = x0 + xc;")]),
+    ("K6a and K6b: the last partial chunk dropped", "bilateral",
+     [(RB, "const int64_t n_chunks = (Xp + c->W - 1) / c->W;",
+       "const int64_t n_chunks = Xp / c->W;")]),
+    ("K6a and K6b: a span's head word dropped", "bilateral",
+     [(RB, "return t < 4 ? (t < head() ? t : n)", "return t < 4 ? (t + 1 < head() ? t : n)")]),
     ("K6a 16-byte reads from the row before", "bilateral",
      [(RB, "__ldg(reinterpret_cast<const uint4*>(xb + src))",
        "__ldg(reinterpret_cast<const uint4*>(xb + (src >= X ? src - X : src)))")]),
+    ("K6b a chunk's tail words not read", "bilateral",
+     [(RB, "if (k < ch.n) tile[lead + k] = __ldg(span + k);",
+       "if (k < head + 4 * runs) tile[lead + k] = __ldg(span + k);")]),
+    ("K6b a 16-byte write one row off", "bilateral",
+     [(RB, "*reinterpret_cast<uint4*>(o) = make_uint4(",
+       "*reinterpret_cast<uint4*>(o - (y > 0 ? X : 0)) = make_uint4(")]),
+    ("K6b a run's first two x positions swapped", "bilateral",
+     [(RB, "make_uint4(s[0], s[P], s[2 * P], s[3 * P])",
+       "make_uint4(s[P], s[0], s[2 * P], s[3 * P])")]),
+    ("K6b a cropped plane written over plane Z - 1", "bilateral",
+     [(RB, "if (z >= Z || y >= Y || wx >= X) continue;", "if (y >= Y || wx >= X) continue;"),
+      (RB, "uint32_t* o = ob + ((int64_t)z * Y + y) * X + wx;",
+       "uint32_t* o = ob + ((int64_t)min(z, Z - 1) * Y + y) * X + wx;")]),
+    ("K6b one word a lane read from lane p + 1", "bilateral",
+     [(RB, "      *o = s[0];\n", "      *o = s[w.row.p + 1 < P ? 1 : 0];\n")]),
     ("control: no edit", "fused_block", []),
     # K3's attention launch: the wrapper around attention_core in fused_block.cu
     ("K3 attention: k rows read at pitch D instead of 3D", "fused_block",
@@ -282,7 +299,7 @@ GEMM_ABLATION = [
 
 
 # K8 at the request's, the whole grid's and the 2-D solver's lattices, and
-# K6a at the request's planes, with one part taken out or one size changed
+# K6a and K6b at the request's planes, with one part taken out or one size changed
 # (results wrong where a part is out: only the times count)
 BILATERAL_ABLATION = [
     ("whole kernels", []),
@@ -296,10 +313,31 @@ BILATERAL_ABLATION = [
     ("K8 no x neighbour loads",
      [(BL, "const float4 xp = w.x + 1 < p.X ? ld4(q + p.L) : zero;", "const float4 xp = zero;"),
       (BL, "const float4 xm = w.x > 0 ? ld4(q - p.L) : zero;", "const float4 xm = zero;")]),
-    ("K6a chunks of at most 64 x positions",
-     [(RB, "constexpr int kReblockWidth = 128;", "constexpr int kReblockWidth = 64;")]),
-    ("K6a chunks of at most 32 x positions",
-     [(RB, "constexpr int kReblockWidth = 128;", "constexpr int kReblockWidth = 32;")]),
+    ("K6a and K6b chunks of at most 128 x positions (two a slab row at 128^3)",
+     [(RB, "constexpr int kReblockWidth = 136;", "constexpr int kReblockWidth = 128;")]),
+    ("K6a and K6b chunks of at most 64 x positions",
+     [(RB, "constexpr int kReblockWidth = 136;", "constexpr int kReblockWidth = 64;")]),
+    ("K6b streaming loads (__ldcs) instead of __ldg",
+     [(RB, "= __ldg(reinterpret_cast<const uint4*>(span + k));",
+       "= __ldcs(reinterpret_cast<const uint4*>(span + k));"),
+      (RB, "tile[lead + k] = __ldg(span + k);", "tile[lead + k] = __ldcs(span + k);")]),
+    ("K6a and K6b chunks a multiple of 8 x positions (32-byte row pieces)",
+     [(RB, "c->W = (int)(((Xp + pieces - 1) / pieces + 3) & ~3);",
+       "c->W = (int)(((Xp + pieces - 1) / pieces + 7) & ~7);")]),
+    ("K6b reads not unrolled",
+     [(RB, "read again\n#pragma unroll 4\n  for (int r = threadIdx.x;",
+       "read again\n  for (int r = threadIdx.x;")]),
+    ("K6b tile reads rotated by lane group (no bank conflicts at odd ss)",
+     [(RB, "*reinterpret_cast<uint4*>(o) = make_uint4(s[0], s[P], s[2 * P], s[3 * P]);",
+       "{ const int q = (w.u >> 3) & 3;"
+       " const uint32_t a0 = s[q * P], a1 = s[((q + 1) & 3) * P], a2 = s[((q + 2) & 3) * P],"
+       " a3 = s[((q + 3) & 3) * P];"
+       " *reinterpret_cast<uint4*>(o) = q == 0 ? make_uint4(a0, a1, a2, a3)"
+       " : q == 1 ? make_uint4(a3, a0, a1, a2) : q == 2 ? make_uint4(a2, a3, a0, a1)"
+       " : make_uint4(a1, a2, a3, a0); }")]),
+    ("K6b streaming stores",
+     [(RB, "*reinterpret_cast<uint4*>(o) = make_uint4(s[0], s[P], s[2 * P], s[3 * P]);",
+       "__stcs(reinterpret_cast<uint4*>(o), make_uint4(s[0], s[P], s[2 * P], s[3 * P]));")]),
     ("whole kernels, again", []),
 ]
 
@@ -316,7 +354,9 @@ def _time_bilateral(cs, torch):
     out = [f"K8 {name} {round(cs.ten_call_ms(lambda: cs.bls_blur(lat, d)), 5)}"
            for name, (lat, d) in lats.items()]
     c = torch.rand((cs.BLS_C,) + (128,) * 3, generator=gen).to("cuda")
+    c_b = cs.bls_reblock(c, ss)
     out.append(f"K6a {round(cs.ten_call_ms(lambda: cs.bls_reblock(c, ss)), 5)}")
+    out.append(f"K6b {round(cs.ten_call_ms(lambda: cs.bls_unreblock(c_b, ss, c.shape[1:])), 5)}")
     return "ms: " + ", ".join(out)
 
 
