@@ -14,7 +14,8 @@ solver and the island filter, and three refined requests; then the
 blocked-form refinement (the split-form witness, the 2-D solver and
 coarse-to-fine) and the served path (the ``serve`` CLI answering annotation
 edits in a directory); and the chained GEMM probe, the baselines path (the
-device SVM predict) and the tools path. Phases:
+device SVM predict), the trainer foundations, the four CNN trainers with
+the training CLI, and the tools path. Phases:
 
 1. card, versions, kernel build time;
 2. attention kernel vs plain at (8, 6, 4097, 64) bf16/fp32, fp32 at
@@ -74,6 +75,20 @@ device SVM predict) and the tools path. Phases:
    gradients, one ``ProbeTrainer.fit`` epoch on 384-wide features, each
    against the same call on CPU tensors; a parameter ``.npz`` and a
    checkpoint read back equal;
+5d. trainers: ``ContrastiveTrainer``, ``IntraCLRTrainer`` and ``PAWSTrainer``
+   on a 128³ ``make_multiclass_volume`` phantom and
+   ``DenseContrastiveTrainer`` (a full-volume forward and backward a step)
+   on a 96³ one, each at its JAX default config, 10 steps on the card and
+   10 on the CPU from the same initial values and draws (TF32 off): finite
+   records, each step's records within 1e-4 of the CPU's; the contrastive
+   trainers run free and end with parameters within 1e-4 and optimizer
+   state within 1e-3 of each leaf's largest (counts equal; the biases
+   ahead of a GroupNorm or BatchNorm named and left out), PAWS takes the
+   card's state before each CPU step and is held so at every step; median
+   step ms; the dense step at 128³ on the card alone; then
+   ``cli/train.py --trainer paws --iterations 4`` with checkpoints, and
+   again with ``--iterations 8 --resume`` (the log goes on at step 5,
+   checkpoints at 2, 4, 6, 8);
 6. main path: ``infer`` on a 128³ phantom, ``predict_ntf``, three requests;
    the attention and similarity launch counters must have risen;
 7. fused path: ``infer --block-impl fused`` on the same volume (528 fused
@@ -107,15 +122,18 @@ device SVM predict) and the tools path. Phases:
     ``annotations.npy`` four times (five classes; one class edited; a class
     added; cleared); every answer is held against a fresh recompute (bit-equal
     without the solver; with it within 1e-3, the recompute bit-equal to its
-    repeat);
+    repeat, bit-equal to the kernel's similarities through the plain twins'
+    solve with a deterministic ``index_add_``, and within ±1 of the plain
+    route made so);
 14a. tools path: the similarity kernel with no threshold on scores of either
     sign vs plain; ``compare_sampling_strategies`` at 64³ x 384 (5 similarity
     launches, maps vs the plain route within the uint8 contract);
     ``resample_topk`` and ``apply_bilateral_solver3d_rgb`` (64³ RGB phantom)
     against the same calls on CPU tensors; an ``mlp``-source extraction at 32³;
 15. with ``--profile`` only: torch.profiler traces of a warm 128³
-    extraction (per-op blocks and fused blocks), of three requests and of
-    three refined requests (device busy time, idle share, top kernels).
+    extraction (per-op blocks and fused blocks), of three requests, of
+    three refined requests and of one PAWS and one dense trainer step at
+    128³ (device busy time, idle share, top kernels).
 With ``--ptxas`` phase 1 also prints every kernel's registers, shared memory,
 spills and performance warnings.
 
@@ -132,6 +150,7 @@ import dataclasses
 import functools
 import io
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -207,9 +226,17 @@ from vittf_tpu_torch.models.serialization import (
     save_checkpoint,
     save_params_npz,
 )
+from vittf_tpu_torch.models.serialization import checkpoint_steps
+from vittf_tpu_torch.train.contrastive import ContrastiveTrainer
+from vittf_tpu_torch.train.dense import DenseContrastiveTrainer
+from vittf_tpu_torch.train.intra_clr import IntraCLRTrainer
 from vittf_tpu_torch.train.losses import infonce_loss, paws_loss
+from vittf_tpu_torch.train.paws import PAWSTrainer, _lars_label_fn
+from vittf_tpu_torch.train.optim import tree_leaves, tree_map_with_path
 from vittf_tpu_torch.train.probe import ProbeConfig, ProbeTrainer
+from vittf_tpu_torch.cli import train as train_cli
 from vittf_tpu_torch.pipeline.features import ExtractConfig, extract_features
+from vittf_tpu_torch.pipeline import refine as refine_module
 from vittf_tpu_torch.pipeline import session as session_module
 from vittf_tpu_torch.pipeline.ntf import (
     CT_ORG_THRESHOLDS,
@@ -1513,6 +1540,31 @@ def serve_frames(labels, seed, n=256):
     return [ann, second, third, {}]
 
 
+def plain_solve(vol, feat_t, classes, ref, impl) -> tuple[dict, torch.Tensor]:
+    """``classes`` through the refined route with the similarity of ``impl``
+    ('auto': the kernel; 'plain': its twin) and the plain twins' solve
+    (``pixel_impl='scatter'``) under deterministic algorithms, where the
+    card's ``index_add_`` sums in the ascending order the splat kernels
+    take. Returns the uint8 maps and the float similarities solved."""
+    real, solved = refine_module.refine_similarities_batched, []
+
+    def solve(sims, volume, sim_shape, **kw):
+        solved.append(sims)
+        was = (torch.are_deterministic_algorithms_enabled(),
+               torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            return real(sims, volume, sim_shape, **{**kw, "pixel_impl": "scatter"})
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+    with mock.patch.object(refine_module, "refine_similarities_batched", solve):
+        maps = compute_similarities(vol, feat_t, classes, bilateral_solver=True,
+                                    bls_shape_bucket=8, bls_ref_u8=ref, impl=impl,
+                                    mean_first=False)
+    return maps, solved[0]
+
+
 def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
     """The served path: ``serve`` on an artifact directory, driven through
     its ``main`` while a thread plays the frontend. Without the solver every
@@ -1525,9 +1577,15 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
     (``index_add_`` is atomic on the card), so the answer is held to it at
     1e-3 only when that route equals its own repeat in this run, and at
     1.5e-2 when it does not; both shares are printed. A wrong crop, class or
-    stale map moves values by more than 1. The other maps must be the
-    previous answer's bit for bit, and the deviation from a full recompute
-    is printed. Returns the launch counts of both runs."""
+    stale map moves values by more than 1. Each edited map must also equal,
+    bit for bit, the kernel's similarities through the plain twins' solve
+    with ``index_add_`` deterministic (``plain_solve``), and lie within ±1
+    of the whole plain route made so; the voxels where it differs, and how
+    far the twin's similarities lie from the kernel's, are printed (the
+    solve turns a few ulps of similarity into ±1 on up to 1.9e-3 of a map's
+    voxels: ROADMAP §C 15). The other maps must be the previous answer's
+    bit for bit, and the deviation from a full recompute is printed.
+    Returns the launch counts of both runs."""
     feat_t = torch.from_numpy(load_features(feats_path)).to("cuda")
     frames = serve_frames(labels, seed, n)
     sim_shape = tuple(s // 2 for s in vol.shape)
@@ -1569,6 +1627,7 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
             raise AssertionError(f"serve answered {len(answers)} of {len(frames)} edits")
 
         n_diff, n_plain, n_plain_repeat, full_dev, prev = [], [], [], [], {}
+        n_det, sim_dev = [], []
         for i, (frame, (sims, pred)) in enumerate(zip(frames, answers)):
             if list(sims) != list(frame):
                 raise AssertionError(f"serve answer {i}: classes {list(sims)}")
@@ -1594,11 +1653,20 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
                 vol, feat_t, edited, bilateral_solver=True, bls_shape_bucket=8, bls_ref_u8=ref,
                 impl=impl, mean_first=False) for impl in ("auto", "auto", "plain", "plain"))
             plain_repeats = all(torch.equal(plain[k], plain_again[k]) for k in edited)
+            witness, sims_kernel = plain_solve(vol, feat_t, edited, ref, "auto")
+            det_plain, sims_plain = plain_solve(vol, feat_t, edited, ref, "plain")
+            sim_dev.append((sims_kernel - sims_plain).abs().max().item()
+                           / sims_plain.abs().max().item())
             for k in frame:
                 got = torch.from_numpy(sims[k]).to("cuda")
                 if k in edited:
                     n_diff.append(check_u8_maps(f"serve answer {i} map {k}", got, fresh[k]))
                     assert_equal(f"repeat of request {i} map {k}", again[k], fresh[k])
+                    assert_equal(f"serve answer {i} map {k} vs the plain twins' solve",
+                                 got, witness[k])
+                    n_det.append(check_u8_maps(f"serve answer {i} map {k} vs the plain "
+                                               "twins' deterministic route", got,
+                                               det_plain[k], 1.0))
                     n_plain.append(check_u8_maps(f"serve answer {i} map {k} vs plain", got,
                                                  plain[k], 1e-3 if plain_repeats else 1.5e-2))
                     n_plain_repeat.append(check_u8_maps(
@@ -1613,7 +1681,11 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
                 f"{[x * 1e3 for x in secs]} ms; launches (similarity, splat, slice, blur) "
                 f"{launches[-1]}; ")
         print(line + (f"voxels of {sim_shape} that differ by 1, per edited map: answer vs a "
-                      f"fresh recompute {n_diff} (the recompute equals its repeat bit for bit), "
+                      f"fresh recompute {n_diff} (the recompute equals its repeat bit for bit, "
+                      f"and the plain twins' deterministic solve of the kernel's similarities "
+                      f"equals every answer bit for bit), vs the plain twins' route made "
+                      f"deterministic {n_det} (its similarities up to {sim_dev} of the largest "
+                      f"from the kernel's, per edit), "
                       f"vs the plain twins {n_plain}, the plain twins' route vs its own repeat "
                       f"{n_plain_repeat}; mean |delta| to a full recompute of all classes per "
                       f"map {full_dev}" if solver else "every map and prediction equals a full "
@@ -1905,20 +1977,22 @@ def card_ms(fn) -> tuple[object, float]:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def to_cuda(tree):
-    """A tree of tensors (dicts, lists, tuples) copied to the card."""
+def tree_to(tree, device):
+    """A tree of tensors (dicts, lists, tuples, named tuples; other leaves
+    kept) copied to ``device``."""
     if isinstance(tree, dict):
-        return {k: to_cuda(v) for k, v in tree.items()}
+        return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_cuda(v) for v in tree)
-    return tree.cuda()
+        items = [tree_to(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return tree.detach().to(device, copy=True) if torch.is_tensor(tree) else tree
 
 
 def check_trees(name, got, want, rtol, atol) -> float:
     """Every tensor of ``got`` (on the card) within the tolerance of the
     same leaf of ``want`` (on the CPU); returns the largest |difference|."""
     if torch.is_tensor(want):
-        return check_close(name, got.cpu(), want, rtol, atol)
+        return check_close(name, got.detach().cpu(), want, rtol, atol)
     items = want.items() if isinstance(want, dict) else enumerate(want)
     return max(check_trees(f"{name}.{k}", got[k], w, rtol, atol) for k, w in items)
 
@@ -1952,7 +2026,7 @@ def _phase_foundations(seed, tmp, n_crops, ks, probe_rows, width, n_classes):
     cfg = PAWSNetConfig()
     params, state = init_pawsnet(cfg, gen, device="cpu")
     crops = torch.randn((n_crops, 1, ks, ks, ks), generator=gen)
-    params_c, state_c, crops_c = (to_cuda(t) for t in (params, state, crops))
+    params_c, state_c, crops_c = (tree_to(t, "cuda") for t in (params, state, crops))
     enc_cfg = FeatureExtractorConfig(1, cfg.conv_layers, (cfg.conv_layers[-1],))
     got, ms = card_ms(lambda: feature_extractor_forward(params_c["encoder"], crops_c, enc_cfg))
     err = check_close("feature_extractor_forward", got.cpu(),
@@ -2019,6 +2093,202 @@ def _phase_foundations(seed, tmp, n_crops, ks, probe_rows, width, n_classes):
         raise AssertionError("checkpoint round trip: step or optimizer state")
     print(f"foundations: PAWSNet params .npz ({ms} ms to write) and a checkpoint (params, BN "
           "state, AdamW state, step) read back equal")
+
+
+def _records(rec) -> dict:
+    """A trainer step's record as a dict (IntraCLR's is its loss)."""
+    return rec if isinstance(rec, dict) else {"loss": rec}
+
+
+TRAINERS = ("ContrastiveTrainer", "IntraCLRTrainer", "PAWSTrainer", "DenseContrastiveTrainer")
+# biases whose shift a later normalization removes: the conv biases of the
+# encoders' layers (a GroupNorm follows each) and, in PAWSNet, every bias
+# that reaches a BatchNorm with no nonlinearity between (the encoder's last
+# bias; in the heads bn0's and fc1's, and the projection's fc2 and fc3,
+# whose features the other heads see only detached). Their gradients are
+# sums that cancel to rounding, so their optimizer state holds the card's
+# and the CPU's reduction orders
+NORM_FED = re.compile(r"(^|\.)((convs|lins)\.\d+\.conv\.bias|encoder\.last\.bias"
+                      r"|(proj|head|predict)\.(bn0|fc1)\.bias|proj\.fc[23]\.bias)$")
+
+
+def trainer_phantom(seed, size) -> tuple[np.ndarray, np.ndarray]:
+    """A ``make_multiclass_volume`` phantom (volume, int32 labels) on the host."""
+    vol_t, lab_t = make_multiclass_volume(size, 0.05, seed, device="cpu")
+    return vol_t.numpy(), lab_t.numpy().astype(np.int32)
+
+
+def make_trainer(name, phantom, seed, device):
+    """Trainer ``name`` at its JAX default config on ``phantom``; PAWS takes
+    three classes, the shell's value (3) marking its unlabeled voxels."""
+    vol, lab = phantom
+    names = ["background", "sphere", "torus", "shell"]
+    if name == "ContrastiveTrainer":
+        return ContrastiveTrainer(vol, lab, seed=seed, device=device)
+    if name == "IntraCLRTrainer":
+        return IntraCLRTrainer(vol, seed=seed, device=device)
+    if name == "PAWSTrainer":
+        return PAWSTrainer(vol, lab, names[:3], seed=seed, device=device)
+    return DenseContrastiveTrainer(vol, lab, names, seed=seed, device=device)
+
+
+def trainer_state(trainer) -> dict:
+    """What a trainer's step reads and writes besides its host draws."""
+    return {f: getattr(trainer, f) for f in ("params", "head_params", "bn_state", "opt_state")
+            if hasattr(trainer, f)}
+
+
+def opt_state_leaves(trainer, state=None, paths=None, prefix="opt_state"):
+    """(name, leaf) of a trainer's optimizer state: the step counts, and each
+    tensor of a per-parameter list named by its parameter's path."""
+    if state is None:
+        params = (trainer.params, trainer.head_params) if hasattr(trainer, "head_params") \
+            else trainer.params
+        paths = []
+        tree_map_with_path(lambda p, _: paths.append(".".join(p)), params)
+        if isinstance(trainer.opt_state, dict):  # multi_transform: a state per label
+            labels = tree_leaves(_lars_label_fn(trainer.params))
+            paths = {k: [p for p, lab in zip(paths, labels) if lab == k]
+                     for k in trainer.opt_state}
+        state = trainer.opt_state
+    if isinstance(state, dict):
+        for k, s in state.items():
+            yield from opt_state_leaves(trainer, s, paths[k], f"{prefix}.{k}")
+    elif isinstance(state, list):
+        if len(state) != len(paths):
+            raise AssertionError(f"{prefix}: {len(state)} tensors for {len(paths)} parameters")
+        for p, t in zip(paths, state):
+            yield f"{prefix}.{p}", t
+    elif isinstance(state, tuple):
+        for f, s in zip(getattr(state, "_fields", range(len(state))), state):
+            yield from opt_state_leaves(trainer, s, paths, f"{prefix}.{f}")
+    else:
+        yield prefix, state
+
+
+def check_opt_state(name, card, host, share) -> tuple[float, list[str]]:
+    """The card trainer's optimizer state against the CPU trainer's: every
+    count equal, every moment or trace within ``share`` of its leaf's largest
+    |value|, but the ``NORM_FED`` leaves (returned by name). Returns the
+    largest leaf-scaled difference and the names left out."""
+    got, want = dict(opt_state_leaves(card)), dict(opt_state_leaves(host))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{name}: optimizer states of other structure")
+    worst, skipped, bad = 0.0, [], []
+    for k, w in want.items():
+        g = got[k]
+        if not torch.is_tensor(w):
+            if g != w:
+                bad.append(f"{k}: count {g} on the card, {w} on the CPU")
+        elif NORM_FED.search(k):
+            skipped.append(k)
+        else:
+            scale = w.abs().max().item()
+            err = (g.detach().cpu() - w).abs().max().item()
+            if not err <= share * scale:
+                bad.append(f"{k}: {err} apart, {share} of its largest {scale}")
+            worst = max(worst, err / scale if scale else 0.0)
+    if bad:
+        raise AssertionError(f"{name} optimizer state: {bad}")
+    return worst, skipped
+
+
+def phase_trainers(seed, size=128, dense_size=96, steps=10):
+    """5d: each trainer at its JAX default config on a ``size``³ phantom
+    (the dense one, whose step is a full-volume forward and backward, on
+    ``dense_size``³), ``steps`` steps on the card and on the CPU from the
+    same initial values and draws (host indices from the same seed,
+    augmentations from generators seeded alike), TF32 off. The crop and the
+    dense contrastive trainers run free: each step's records within 1e-4 of
+    the CPU step's, and after the last step the parameters (the dense head)
+    within 1e-4 and the optimizer state (``check_opt_state``) within 1e-3 of
+    each leaf's largest. PAWS at its defaults amplifies fp32 rounding (an
+    H100 and the CPU part by 3.4e-3 in a loss by step 4 run free), so its
+    CPU trainer takes the card trainer's state before each step, and each
+    step is held from one state: records, parameters and BatchNorm state
+    within 1e-4, the optimizer state as above. Then the dense step at
+    ``size``³ on the card alone (timed), and the training CLI with
+    checkpoints and a resume. Step times are host-clock ms of one step, the
+    card synchronized."""
+    phantoms = {n: trainer_phantom(seed, n) for n in {size, dense_size}}
+    for name in TRAINERS:
+        n = dense_size if name == "DenseContrastiveTrainer" else size
+        resync = name == "PAWSTrainer"
+        torch.cuda.reset_peak_memory_stats()
+        card, host = (make_trainer(name, phantoms[n], seed, dev) for dev in ("cuda", "cpu"))
+        ms, err_rec, err_state, err_opt, host_s, loss = [], 0.0, 0.0, 0.0, 0.0, []
+        for i in range(steps):
+            if resync:
+                for f, tree in trainer_state(card).items():
+                    tree = tree_to(tree, "cpu")
+                    if f.endswith("params"):
+                        tree = tree_map_with_path(lambda _, t: t.requires_grad_(True), tree)
+                    setattr(host, f, tree)
+            rec, t = card_ms(card.step)
+            ms.append(t)
+            t0 = time.perf_counter()
+            want = _records(host.step())
+            host_s += time.perf_counter() - t0
+            for k, v in want.items():
+                got = _records(rec)[k]
+                if not np.isfinite(got):
+                    raise AssertionError(f"{name} step {i + 1}: {k} = {got}")
+                err_rec = max(err_rec, check_close(f"{name} step {i + 1} {k}", torch.tensor(got),
+                                                   torch.tensor(v), 1e-4, 1e-4))
+            if resync or i == steps - 1:
+                got, want = trainer_state(card), trainer_state(host)
+                del got["opt_state"], want["opt_state"]
+                err_state = max(err_state, check_trees(f"{name} step {i + 1}", got, want,
+                                                       1e-4, 1e-4))
+                worst, skipped = check_opt_state(f"{name} step {i + 1}", card, host, 1e-3)
+                err_opt = max(err_opt, worst)
+            loss.append(_records(rec)["loss"])
+        held = "each step from the card's state" if resync else "run free"
+        print(f"trainers: {name} {n}^3 {card.cfg.__class__.__name__}() defaults, {steps} steps "
+              f"{held}: loss {loss[0]} -> {loss[-1]}, each step's records within {err_rec}, "
+              f"{'/'.join(trainer_state(card))[:-len('/opt_state')]} within {err_state} of "
+              f"the CPU's, optimizer state counts equal and moments within {err_opt} of each "
+              f"leaf's largest (left out, ahead of a norm: {len(skipped)} leaves "
+              f"{[k.split('.', 1)[1] for k in skipped]}); step ms median "
+              f"{float(np.median(ms))} (first {ms[0]}; CPU steps {host_s} s), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30} GiB")
+        del card, host
+    if dense_size != size:
+        torch.cuda.reset_peak_memory_stats()
+        card = make_trainer("DenseContrastiveTrainer", phantoms[size], seed, "cuda")
+        ms, loss = [], []
+        for i in range(steps):
+            rec, t = card_ms(card.step)
+            if not all(np.isfinite(v) for v in rec.values()):
+                raise AssertionError(f"DenseContrastiveTrainer {size}^3 step {i + 1}: {rec}")
+            ms.append(t)
+            loss.append(rec["loss"])
+        print(f"trainers: DenseContrastiveTrainer {size}^3 on the card alone, {steps} steps: "
+              f"loss {loss[0]} -> {loss[-1]}, finite; step ms median {float(np.median(ms))} "
+              f"(first {ms[0]}), peak {torch.cuda.max_memory_allocated() / 2**30} GiB")
+        del card
+    torch.cuda.empty_cache()
+
+    vol, lab = phantoms[size]
+    with tempfile.TemporaryDirectory(prefix="vittf_train_") as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "data.npy", {"vol": vol, "mask": lab,
+                                   "labels": ["background", "sphere", "torus"]}, allow_pickle=True)
+        args = ["--trainer", "paws", "--data", str(tmp / "data.npy"), "--ckpt-dir",
+                str(tmp / "ckpt"), "--ckpt-every", "2", "--log-jsonl", str(tmp / "log.jsonl"),
+                "--log-every", "0"]
+        rc, ms_first = card_ms(lambda: train_cli.main(args + ["--iterations", "4"]))
+        rc2, ms_resume = card_ms(lambda: train_cli.main(args + ["--iterations", "8", "--resume"]))
+        log = [json.loads(line) for line in (tmp / "log.jsonl").read_text().splitlines()]
+        state = restore_checkpoint(tmp / "ckpt", map_location="cuda")
+        if (rc, rc2) != (0, 0) or [r["step"] for r in log] != list(range(1, 9)) \
+                or not all(np.isfinite(r["loss"]) for r in log) \
+                or checkpoint_steps(tmp / "ckpt") != [2, 4, 6, 8] or state["step"] != 8:
+            raise AssertionError(f"cli/train.py paws: rc {rc} {rc2}, log {log}, "
+                                 f"checkpoints {checkpoint_steps(tmp / 'ckpt')}")
+    print(f"trainers: cli/train.py --trainer paws on {size}^3: 4 iterations with checkpoints "
+          f"{ms_first} ms, --resume to 8 {ms_resume} ms (log steps 1-8, losses "
+          f"{[round(r['loss'], 4) for r in log]}, checkpoints at 2, 4, 6, 8); on {smi_line()}")
 
 
 def rgb_phantom(size, seed):
@@ -2151,7 +2421,8 @@ def device_breakdown(prof, wall_s: float, label: str, top: int = 6):
 def phase_profile(seed):
     """torch.profiler traces of the library calls users wait on: a warm 128³
     full-sweep extraction, three interactive requests against the features
-    resident on the card, and three refined requests."""
+    resident on the card, three refined requests, and a warm step of the
+    PAWS and the dense trainer at their defaults on a 128³ phantom."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = resolve_model("vits8")
@@ -2188,6 +2459,19 @@ def phase_profile(seed):
         bls_requests(vol, feats, anns)
         wall = time.perf_counter() - t0
     device_breakdown(prof, wall, "3 refined requests (bilateral_solver, bucket 8), 64^3 features")
+
+    phantom_128 = trainer_phantom(seed, 128)
+    for name in ("PAWSTrainer", "DenseContrastiveTrainer"):
+        trainer = make_trainer(name, phantom_128, seed, "cuda")
+        trainer.step()  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            trainer.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        device_breakdown(prof, wall, f"{name} step, 128^3, defaults")
+        del trainer
 
 
 def print_ptxas():
@@ -2238,6 +2522,7 @@ def main() -> int:
     n_k9 = phase_probe_path()
     phase_baselines(args.seed)
     phase_foundations(args.seed)
+    phase_trainers(args.seed)
     with tempfile.TemporaryDirectory(prefix="vittf_smoke_") as tmp:
         n_attn, n_sim, vol, labels, feat_t = phase_main_path(args.seed, Path(tmp))
         n_k3 = phase_fused_path(args.seed, Path(tmp))

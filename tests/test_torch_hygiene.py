@@ -34,7 +34,8 @@ def test_port_imports_no_jax():
         "        'core.rle', 'core.config', 'utils.polygon', 'utils.timer', 'pipeline.reporting',\n"
         "        'pipeline.visualize', 'models.serialization', 'core.synthetic', 'cli.synth',\n"
         "        'cli.convert_weights', 'models.cnn3d', 'train.utils', 'train.losses',\n"
-        "        'train.gather', 'train.moco', 'train.probe'}\n"
+        "        'train.gather', 'train.moco', 'train.probe', 'train.optim', 'train.contrastive',\n"
+        "        'train.dense', 'train.intra_clr', 'train.paws', 'cli.train', 'cli.sweep', '_lazy'}\n"
         "assert {'vittf_tpu_torch.' + n for n in need} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'vittf_tpu.')) or m == 'vittf_tpu')\n"
         "assert not bad, bad\n"
@@ -62,6 +63,21 @@ def test_host_module_is_a_verbatim_copy(rel):
     assert (REPO / "vittf_tpu_torch" / rel).read_text() == want
 
 
+def test_sweep_cli_is_a_near_verbatim_copy():
+    """``cli/sweep.py`` is the JAX file but for the package name and the
+    ``--cpu`` flag it adds and hands to the trainer factory."""
+    import difflib
+    import re
+
+    want = re.sub(r"vittf_tpu\b", "vittf_tpu_torch", (REPO / "vittf_tpu/cli/sweep.py").read_text())
+    got = (REPO / "vittf_tpu_torch/cli/sweep.py").read_text()
+    diff = [d for d in difflib.ndiff(want.splitlines(), got.splitlines()) if d[:2] in ("- ", "+ ")]
+    assert diff == [
+        '+     p.add_argument("--cpu", action="store_true", help="Run on the CPU")',
+        "+             cpu=args.cpu,",
+    ]
+
+
 def test_chip_smoke_fails_without_gpu():
     res = _run(["chip_smoke.py"], env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0
@@ -76,11 +92,23 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok": true' not in res.stdout
 
 
-def test_infer_requires_cuda_without_cpu_flag(tmp_path, monkeypatch):
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a test that runs a full-width model on the
+    CPU: beside other test workers, torch's default threads oversubscribe
+    the cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_infer_requires_cuda_without_cpu_flag(tmp_path, monkeypatch, one_torch_thread):
     """No CUDA device: the port's CLI raises unless ``--cpu`` is given; with
     it, ``--streamed`` writes the JAX CLI's ``--streamed`` artifact (uint16
-    volume, streamed compact; vits8, fos 4, parity mode) and
-    ``--data-parallel`` is refused."""
+    volume, streamed compact; vits8, fos 4, parity mode)."""
     import numpy as np
     import torch
 
@@ -103,8 +131,37 @@ def test_infer_requires_cuda_without_cpu_flag(tmp_path, monkeypatch):
     # fp16 artifacts: fp32 sums that differ in the last bits may round apart
     np.testing.assert_allclose(got.astype(np.float32), want.astype(np.float32),
                                rtol=1e-3, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        infer.main(["--data-path", str(tmp_path / "v.npy"), "--cpu", "--data-parallel"])
+
+
+def test_infer_data_parallel_on_one_rank_is_the_plain_path(tmp_path, monkeypatch,
+                                                            one_torch_thread):
+    """The JAX CLI's dispatch: ``--data-parallel`` with one rank (no process
+    group here) writes the port's plain artifact bit for bit, and the JAX
+    CLI's ``--data-parallel`` artifact (its sharded path over the 8 virtual
+    CPU devices) within 1e-5 (fp32 artifacts, parity mode; twelve ViT-S/8
+    blocks put a few values 1.8e-6 apart, where the golden features' tiny
+    model holds 1e-6); more than one rank is refused until the multi-device
+    layer."""
+    import numpy as np
+
+    from vittf_tpu.cli import infer as jax_infer
+    from vittf_tpu_torch.cli import infer
+
+    np.save(tmp_path / "v.npy", np.random.default_rng(1).random((16, 16, 16), dtype=np.float32))
+    args = ["--data-path", str(tmp_path / "v.npy"), "--feature-output-size", "4",
+            "--precision", "highest", "--feature-dtype", "float32"]
+    out = {}
+    for name, extra in (("plain", ["--cpu"]), ("dp", ["--cpu", "--data-parallel"])):
+        assert infer.main(args + extra + ["--cache-path", str(tmp_path / f"{name}.npy")]) == 0
+        out[name] = np.load(tmp_path / f"{name}.npy", allow_pickle=True)[()]["k"]
+    assert jax_infer.main(args + ["--data-parallel", "--cache-path", str(tmp_path / "jax.npy")]) == 0
+    want = np.load(tmp_path / "jax.npy", allow_pickle=True)[()]["k"]
+    assert out["dp"].dtype == np.float32 and out["dp"].shape == want.shape == (384, 4, 4, 4)
+    np.testing.assert_array_equal(out["dp"], out["plain"])
+    np.testing.assert_allclose(out["dp"], want, rtol=1e-5, atol=1e-5)
+    monkeypatch.setattr(infer, "world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="more than one rank"):
+        infer.main(args + ["--cpu", "--data-parallel", "--cache-path", str(tmp_path / "x.npy")])
 
 
 def test_serve_requires_cuda_without_cpu_flag(tmp_path, monkeypatch):

@@ -9,8 +9,12 @@ given. ``--weights`` takes a DINO ``.pth`` or the JAX package's flat
 draws them (``PRNGKey(0)``), so both CLIs extract the same features.
 ``--block-impl fused`` runs every non-final ViT block through the fused
 block kernel (bf16); ``--streamed`` keeps the volume in host memory and
-sends it to the device in chunks. ``--data-parallel`` is not ported yet and
-raises ``NotImplementedError``.
+sends it to the device in chunks. The dispatch is the JAX CLI's:
+``--streamed`` first, the sharded path only when more than one rank is
+present, the plain path otherwise; so ``--data-parallel`` with one rank (no
+process group, or a group of one) writes the plain artifact, and with more
+raises ``NotImplementedError`` (the multi-device layer, ROADMAP §A 10, is
+not ported yet).
 """
 from __future__ import annotations
 
@@ -86,7 +90,8 @@ def build_parser() -> ArgumentParser:
                         "quantized compact artifact")
     p.add_argument("--cpu", action="store_true", help="Run on the CPU")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard slice batches over devices (not ported)")
+                   help="shard slice batches over ranks (one rank: the plain path; "
+                        "more are not ported yet)")
     p.add_argument("--overwrite", action="store_true")
     return p
 
@@ -117,10 +122,17 @@ def load_params(args, cfg) -> dict[str, torch.Tensor]:
     return init_vit_params(cfg, (0, 0))
 
 
+def world_size() -> int:
+    """The ranks of the default process group; 1 without one."""
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data-parallel is not ported yet")
+    if args.data_parallel and not args.streamed and world_size() > 1:
+        raise NotImplementedError(
+            "--data-parallel over more than one rank is not ported yet (ROADMAP §A 10)")
     device = select_device(args.cpu)
 
     from vittf_tpu_torch.core.io import load_volume, save_features

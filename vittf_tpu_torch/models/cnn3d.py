@@ -222,21 +222,21 @@ def pawsnet_forward(params, state, x, cfg: PAWSNetConfig, train: bool = True,
     return (feat, pred), new_state
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device="cpu", dtype=np.float32):
     """A JAX parameter or state tree of the trainer layer (numpy leaves: this
-    module's, or ``train.probe``'s layers) → torch's layout: conv kernels
-    (k, k, k, in, out) → (out, in, k, k, k), linear kernels (in, out) →
-    (out, in), ``kernel`` / ``scale`` → ``weight``."""
+    module's, or ``train.probe``'s layers) → torch's layout in ``dtype``:
+    conv kernels (k, k, k, in, out) → (out, in, k, k, k), linear kernels
+    (in, out) → (out, in), ``kernel`` / ``scale`` → ``weight``."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
             if k == "kernel":
-                w = torch.from_numpy(np.array(v, dtype=np.float32))
+                w = torch.from_numpy(np.array(v, dtype=dtype))
                 w = w.permute(4, 3, 0, 1, 2) if w.ndim == 5 else w.T
                 out["weight"] = w.contiguous().to(device)
             else:
-                out["weight" if k == "scale" else k] = params_from_jax(v, device)
+                out["weight" if k == "scale" else k] = params_from_jax(v, device, dtype)
         return out
     if isinstance(tree, (list, tuple)):
-        return [params_from_jax(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+        return [params_from_jax(v, device, dtype) for v in tree]
+    return torch.from_numpy(np.array(tree, dtype=dtype)).to(device)

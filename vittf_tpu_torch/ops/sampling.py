@@ -3,7 +3,7 @@
 Port of ``vittf_tpu/ops/sampling.py`` (reference infer.py:48-72
 ``sample_features3d``, old/cluster_dino.py:31-46 ``sample_features2d``):
 ``F.grid_sample`` with zero padding, which the JAX package re-implements
-index for index.
+index for index (``grid_sample_3d`` / ``grid_sample_2d``).
 """
 from __future__ import annotations
 
@@ -32,11 +32,26 @@ def sample_features3d(
     if rel_coords.shape[0] != feat_vol.shape[0]:
         rel_coords = rel_coords.expand(feat_vol.shape[0], *rel_coords.shape[1:])
     grid = torch.flip(rel_coords, dims=(-1,))[:, :, :, None, :]  # (M, C, A, 1, 3)
-    feats = F.grid_sample(
-        feat_vol.float(), grid.float(), mode=mode, padding_mode="zeros",
-        align_corners=False,
-    )  # (M, F, C, A, 1)
-    return feats[..., 0].permute(0, 2, 3, 1).to(feat_vol.dtype)
+    feats = grid_sample_3d(feat_vol, grid, mode=mode)  # (M, F, C, A, 1)
+    return feats[..., 0].permute(0, 2, 3, 1)
+
+
+def grid_sample_3d(
+    inp: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear", align_corners: bool = False
+) -> torch.Tensor:
+    """3D grid sample with zero padding.
+
+    inp (N, C, D, H, W); grid (N, *out_dims, 3) with (x→W, y→H, z→D) coords
+    in [-1, 1]; mode 'bilinear' (trilinear) or 'nearest'.
+    Returns (N, C, *out_dims).
+    """
+    N, C = inp.shape[:2]
+    out_dims = tuple(grid.shape[1:-1])
+    points = grid.reshape(N, -1, 1, 1, 3).float()
+    sampled = F.grid_sample(
+        inp.float(), points, mode=mode, padding_mode="zeros", align_corners=align_corners
+    )  # (N, C, P, 1, 1)
+    return sampled.reshape(N, C, *out_dims).to(inp.dtype)
 
 
 def grid_sample_2d(

@@ -25,6 +25,10 @@ def make_nd(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.reshape((1,) * (n - t.ndim) + tuple(t.shape))
 
 
+def make_3d(t: torch.Tensor) -> torch.Tensor:
+    return make_nd(t, 3)
+
+
 def make_4d(t: torch.Tensor) -> torch.Tensor:
     return make_nd(t, 4)
 
@@ -38,6 +42,14 @@ def norm_minmax(t: torch.Tensor) -> torch.Tensor:
     mi = t.min()
     ma = t.max()
     return (t - mi) / (ma - mi)
+
+
+def norm_mean_std(t: torch.Tensor, mu: float = 0.0, std: float = 1.0) -> torch.Tensor:
+    """Standardize to mean ``mu`` / std ``std`` in fp32 (infer.py:36-37), in
+    the reference's order ``(x - mean(x)) * std / std(x) + mu`` with the
+    sample std (``correction=1``) of the reference's ``Tensor.std``."""
+    tf = t.float()
+    return (tf - tf.mean()) * std / tf.std(correction=1) + mu
 
 
 def imagenet_normalize(images: torch.Tensor) -> torch.Tensor:
