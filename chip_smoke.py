@@ -15,7 +15,8 @@ blocked-form refinement (the split-form witness, the 2-D solver and
 coarse-to-fine) and the served path (the ``serve`` CLI answering annotation
 edits in a directory); and the chained GEMM probe, the baselines path (the
 device SVM predict), the trainer foundations, the four CNN trainers with
-the training CLI, and the tools path. Phases:
+the training CLI, and the tools path; then the ViT self-supervision, the
+quality harness and the multi-device layer. Phases:
 
 1. card, versions, kernel build time;
 2. attention kernel vs plain at (8, 6, 4097, 64) bf16/fp32, fp32 at
@@ -123,13 +124,36 @@ the training CLI, and the tools path. Phases:
     added; cleared); every answer is held against a fresh recompute (bit-equal
     without the solver; with it within 1e-3, the recompute bit-equal to its
     repeat, bit-equal to the kernel's similarities through the plain twins'
-    solve with a deterministic ``index_add_``, and within ±1 of the plain
-    route made so);
+    solve with a deterministic ``index_add_``, those similarities within
+    phase 3's contract of the twin's, and within ±1 of the plain route made
+    so);
 14a. tools path: the similarity kernel with no threshold on scores of either
     sign vs plain; ``compare_sampling_strategies`` at 64³ x 384 (5 similarity
     launches, maps vs the plain route within the uint8 contract);
     ``resample_topk`` and ``apply_bilateral_solver3d_rgb`` (64³ RGB phantom)
     against the same calls on CPU tensors; an ``mlp``-source extraction at 32³;
+14b. ViT self-supervision (``phase_vit_ssl``): ``train_vit_selfsup`` at
+    ViT-S/8 full width, ``supcon``, ``infonce`` and ``dino`` 10 steps each
+    at the JAX defaults (im_sz 64, batch 16) on a 128³ phantom; median step
+    ms; steps 1-2 of each replayed on CPU tensors from the card's state
+    (loss 1e-4, gradients 1e-3 of each leaf's largest, parameters and the
+    DINO teacher per ``check_adam_step``, the centre 1e-4); then
+    ``VIT_SSL_ORACLE`` for 250 steps (~30 s), its loss trajectory;
+14c. quality harness (``phase_quality``): ``fastmode_quality_experiment``
+    and ``refinement_quality_experiment`` at 128³ (fos 32) on the random
+    ViT-S/8 (per-op blocks) and on 14b's trained weights (fused blocks):
+    mIoU, stage times, the launch counters (the attention or fused block,
+    similarity, splat, slice and blur kernels must have run); ``ntf_predict``
+    (fp32) through the kernels vs the plain twins on the card, predictions
+    apart on at most 1e-3 of the voxels;
+14d. multi-device layer (``phase_parallel``), one rank on NCCL: the sharded
+    extraction (128³, fos 64, bf16) and similarity ``torch.equal`` to the
+    plain ones, the pipeline forward with one stage (equal with one
+    microbatch; 1e-5 of max|ref| with two) and the tensor-parallel forward
+    with ``model=1`` (1e-5) against the plain forward, ``infer
+    --data-parallel`` under the one-rank group writing phase 6's artifact;
+    then two ranks on the one card over gloo with CUDA tensors, their
+    results held at 1e-5 (an error in either rank fails the phase);
 15. with ``--profile`` only: torch.profiler traces of a warm 128³
     extraction (per-op blocks and fused blocks), of three requests, of
     three refined requests and of one PAWS and one dense trainer step at
@@ -146,12 +170,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
+import datetime
 import functools
 import io
 import json
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -235,6 +262,11 @@ from vittf_tpu_torch.train.paws import PAWSTrainer, _lars_label_fn
 from vittf_tpu_torch.train.optim import tree_leaves, tree_map_with_path
 from vittf_tpu_torch.train.probe import ProbeConfig, ProbeTrainer
 from vittf_tpu_torch.cli import train as train_cli
+from vittf_tpu_torch.parallel.extract import extract_features_sharded, similarity_sharded
+from vittf_tpu_torch.parallel.mesh import make_mesh, shard_params, tp_vit_forward
+from vittf_tpu_torch.parallel.pipeline_parallel import pp_vit_forward
+from vittf_tpu_torch.pipeline import quality
+from vittf_tpu_torch.train import vit_ssl
 from vittf_tpu_torch.pipeline.features import ExtractConfig, extract_features
 from vittf_tpu_torch.pipeline import refine as refine_module
 from vittf_tpu_torch.pipeline import session as session_module
@@ -1573,19 +1605,17 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
     edited maps are held against a fresh recompute of those classes by the
     kernels within the refined-request contract (|delta| <= 1 on <= 1e-3 of
     the voxels), and that recompute must equal its own repeat bit for bit:
-    no kernel of the route sums with atomics. The plain twins' route does
-    (``index_add_`` is atomic on the card), so the answer is held to it at
-    1e-3 only when that route equals its own repeat in this run, and at
-    1.5e-2 when it does not; both shares are printed. A wrong crop, class or
-    stale map moves values by more than 1. Each edited map must also equal,
-    bit for bit, the kernel's similarities through the plain twins' solve
-    with ``index_add_`` deterministic (``plain_solve``), and lie within ±1
-    of the whole plain route made so; the voxels where it differs, and how
-    far the twin's similarities lie from the kernel's, are printed (the
-    solve turns a few ulps of similarity into ±1 on up to 1.9e-3 of a map's
-    voxels: ROADMAP §C 15). The other maps must be the previous answer's
-    bit for bit, and the deviation from a full recompute is printed.
-    Returns the launch counts of both runs."""
+    no kernel of the route sums with atomics. A wrong crop, class or stale
+    map moves values by more than 1. The route is bounded in its two halves
+    apart (ROADMAP §C 15): each edited map must equal, bit for bit, the
+    kernel's similarities through the plain twins' solve with ``index_add_``
+    deterministic (``plain_solve``), and those similarities must lie within
+    phase 3's contract (1e-4, 1e-5) of the plain twin's; the map's distance
+    (±1) to the whole plain route made deterministic is printed (the solve
+    turns a few ulps of similarity into ±1 on up to 1.9e-3 of a map's
+    voxels). The other maps must be the previous answer's bit for bit, and
+    the deviation from a full recompute is printed. Returns the launch
+    counts of both runs."""
     feat_t = torch.from_numpy(load_features(feats_path)).to("cuda")
     frames = serve_frames(labels, seed, n)
     sim_shape = tuple(s // 2 for s in vol.shape)
@@ -1626,8 +1656,8 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
         if len(answers) != len(frames):
             raise AssertionError(f"serve answered {len(answers)} of {len(frames)} edits")
 
-        n_diff, n_plain, n_plain_repeat, full_dev, prev = [], [], [], [], {}
-        n_det, sim_dev = [], []
+        n_diff, full_dev, prev = [], [], {}
+        n_det, sim_err = [], []
         for i, (frame, (sims, pred)) in enumerate(zip(frames, answers)):
             if list(sims) != list(frame):
                 raise AssertionError(f"serve answer {i}: classes {list(sims)}")
@@ -1649,13 +1679,14 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
                 continue
             edited = {k: v for k, v in frame.items()
                       if k not in prev or not np.array_equal(v, prev[k][0])}
-            fresh, again, plain, plain_again = (compute_similarities(
+            fresh, again = (compute_similarities(
                 vol, feat_t, edited, bilateral_solver=True, bls_shape_bucket=8, bls_ref_u8=ref,
-                impl=impl, mean_first=False) for impl in ("auto", "auto", "plain", "plain"))
-            plain_repeats = all(torch.equal(plain[k], plain_again[k]) for k in edited)
+                mean_first=False) for _ in range(2))
             witness, sims_kernel = plain_solve(vol, feat_t, edited, ref, "auto")
             det_plain, sims_plain = plain_solve(vol, feat_t, edited, ref, "plain")
-            sim_dev.append((sims_kernel - sims_plain).abs().max().item()
+            check_close(f"serve answer {i}: the similarity kernel vs its plain twin",
+                        sims_kernel, sims_plain, 1e-4, 1e-5)
+            sim_err.append((sims_kernel - sims_plain).abs().max().item()
                            / sims_plain.abs().max().item())
             for k in frame:
                 got = torch.from_numpy(sims[k]).to("cuda")
@@ -1667,11 +1698,6 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
                     n_det.append(check_u8_maps(f"serve answer {i} map {k} vs the plain "
                                                "twins' deterministic route", got,
                                                det_plain[k], 1.0))
-                    n_plain.append(check_u8_maps(f"serve answer {i} map {k} vs plain", got,
-                                                 plain[k], 1e-3 if plain_repeats else 1.5e-2))
-                    n_plain_repeat.append(check_u8_maps(
-                        f"repeat of the plain route, request {i} map {k}", plain_again[k],
-                        plain[k], 1.5e-2))
                 else:
                     assert_equal(f"serve answer {i} unedited map {k}", got,
                                  torch.from_numpy(prev[k][1]).to("cuda"))
@@ -1683,12 +1709,10 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
         print(line + (f"voxels of {sim_shape} that differ by 1, per edited map: answer vs a "
                       f"fresh recompute {n_diff} (the recompute equals its repeat bit for bit, "
                       f"and the plain twins' deterministic solve of the kernel's similarities "
-                      f"equals every answer bit for bit), vs the plain twins' route made "
-                      f"deterministic {n_det} (its similarities up to {sim_dev} of the largest "
-                      f"from the kernel's, per edit), "
-                      f"vs the plain twins {n_plain}, the plain twins' route vs its own repeat "
-                      f"{n_plain_repeat}; mean |delta| to a full recompute of all classes per "
-                      f"map {full_dev}" if solver else "every map and prediction equals a full "
+                      f"equals every answer bit for bit, the kernel's similarities within "
+                      f"{sim_err} of the twin's largest, per edit), vs the plain twins' route made "
+                      f"deterministic {n_det}; mean |delta| to a full recompute of all classes "
+                      f"per map {full_dev}" if solver else "every map and prediction equals a full "
                       "recompute bit for bit"))
     if launches[0][0] == 0 or min(launches[1]) == 0 or any(launches[0][1:]):
         raise AssertionError(f"served path launches {launches}")
@@ -2392,6 +2416,308 @@ def phase_tools(seed, workdir: Path, size=64):
     return n_sim
 
 
+SSL_METHODS = ("supcon", "infonce", "dino")
+SSL_CHECKED_STEPS = 2  # steps of each method replayed on CPU tensors
+SSL_ORACLE_STEPS = 250  # the oracle's steps on the card (~30 s), fixed so that 14c repeats
+
+
+def _cpu_replay(args, cfg):
+    """A step's arguments copied to the CPU before the card runs it: trees
+    of tensors and tensors copied (the trained tree requiring grad again),
+    the AdamW rebuilt over the copies with the card optimizer's state,
+    configs kept. Returns (args, the first moments before the step)."""
+    out, m_old = [], None
+    trees = [a for a in args if isinstance(a, dict)]
+    params = trees[0]  # the trained tree (ssl, supcon: params; dino: student)
+    for a in args:
+        if a is params:
+            out.append(tree_map_with_path(
+                lambda _, t: t.detach().to("cpu", copy=True).requires_grad_(True), a))
+        elif isinstance(a, torch.optim.Optimizer):
+            opt = vit_ssl.make_optimizer(out[0], cfg)
+            opt.load_state_dict(copy.deepcopy(a.state_dict()))  # no shared step count
+            m_old = [opt.state[p]["exp_avg"].clone() if p in opt.state else torch.zeros_like(p)
+                     for p in tree_leaves(out[0])]
+            out.append(opt)
+        elif isinstance(a, dict):  # the teacher, draws
+            out.append(tree_to(a, "cpu"))
+        elif torch.is_tensor(a):
+            out.append(a.detach().to("cpu", copy=True))
+        else:
+            out.append(a)
+    return out, m_old
+
+
+def check_adam_step(name, card, host, grads, lr) -> float:
+    """An AdamW step's parameters on the card within 1e-5 of each leaf's
+    largest value of the CPU step's where the gradient is at least 1e-3 of
+    the leaf's largest (there Adam's update lr·m̂/(√v̂ + eps) is smooth in
+    it), and within 2·lr where it is smaller (Adam scales the rounding of a
+    gradient near zero, as of the k bias softmax cancels, to a step of up
+    to lr); returns the largest |difference| of the first kind."""
+    worst = 0.0
+    for (path, w), g, gr in zip(flat_leaves(host), tree_leaves(card), grads):
+        d = (g.detach().cpu() - w.detach()).abs()
+        big = gr.abs() >= 1e-3 * gr.abs().max()
+        lim = 1e-5 * w.abs().max().item() + 1e-3 * lr
+        e_big = d[big].max().item()
+        e_small = d[~big].max().item() if (~big).any() else 0.0
+        if e_big > lim or e_small > 2 * lr or not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {path}: card vs CPU {e_big} (limit {lim}), "
+                                 f"small-gradient entries {e_small} (limit {2 * lr})")
+        worst = max(worst, e_big)
+    return worst
+
+
+def flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in flat_leaves(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def phase_vit_ssl(seed, size=128):
+    """5e: the ViT self-supervision at ViT-S/8 full width (random weights
+    ``init_vit_params``), each method (``supcon``, ``infonce``, ``dino``) 10
+    steps through ``train_vit_selfsup`` at the JAX defaults (im_sz 64, batch
+    16) on a ``make_multiclass_volume`` phantom: the median step ms (host
+    clock, the card synchronized), and the first ``SSL_CHECKED_STEPS`` steps
+    replayed on CPU tensors from the card's state before each (parameters,
+    AdamW state, the DINO teacher and centre) with the same slices and
+    draws, TF32 off: the loss within 1e-4, the gradients (from Adam's first
+    moment) within 1e-3 of each leaf's largest, the parameters as
+    ``check_adam_step`` holds them, the teacher likewise, the centre within
+    1e-4. Then ``VIT_SSL_ORACLE`` for ``SSL_ORACLE_STEPS`` steps; its loss
+    trajectory is printed and its teacher returned (the state dict of the
+    trained ViT)."""
+    cfg = resolve_model("vits8")
+    sd = init_vit_params(cfg, (0, seed))
+    vol, labels = trainer_phantom(seed, size)
+    step_names = {"supcon": "_supcon_step", "infonce": "_ssl_step", "dino": "_dino_step"}
+    median = {}
+    for method in SSL_METHODS:
+        scfg = vit_ssl.ViTSelfSupConfig(method=method, steps=10)
+        real = getattr(vit_ssl, step_names[method])
+        ms, errs = [], []
+
+        def step(*args):
+            i = len(ms)
+            if i < SSL_CHECKED_STEPS:
+                host_args, m_old = _cpu_replay(args, scfg)
+            out, t = card_ms(lambda: real(*args))
+            ms.append(t)
+            if i < SSL_CHECKED_STEPS:
+                want = real(*host_args)
+                opts = [next(a for a in r if isinstance(a, torch.optim.Optimizer))
+                        for r in (out, want)]
+                # the step's gradients from Adam's first moment, m = 0.9·m_old + 0.1·g
+                g_card, grads = ([(o.state[p]["exp_avg"].cpu() - 0.9 * m) / 0.1
+                                  for p, m in zip(tree_leaves(r[0]), m_old)]
+                                 for o, r in zip(opts, (out, want)))
+                name = f"vit_ssl {method} step {i + 1}"
+                loss_err = check_close(f"{name} loss", out[-1].cpu(), want[-1], 1e-4, 0.0)
+                g_err = max(check_rel(f"{name} gradient", g, w, 1e-3)
+                            for g, w in zip(g_card, grads))
+                p_err = check_adam_step(name, out[0], want[0], grads, scfg.learning_rate)
+                if method == "dino":
+                    p_err = max(p_err, check_adam_step(f"{name} teacher", out[1], want[1], grads,
+                                                       scfg.learning_rate))
+                    check_rel(f"{name} centre", out[3].cpu(), want[3], 1e-4)
+                errs.append((loss_err, g_err, p_err))
+            return out
+
+        with mock.patch.object(vit_ssl, step_names[method], step):
+            _, hist = vit_ssl.train_vit_selfsup(vol, sd, cfg, scfg, seed=seed, log_every=1,
+                                                labels=labels, device="cuda")
+        losses = [h["loss"] for h in hist]
+        if len(ms) != 10 or not np.isfinite(losses).all():
+            raise AssertionError(f"vit_ssl {method}: {len(ms)} steps, losses {losses}")
+        median[method] = float(np.median(ms))
+        print(f"vit_ssl {method}: ViT-S/8, im_sz 64, batch 16, 10 steps on {size}^3: loss "
+              f"{losses[0]} -> {losses[-1]}; step ms median {median[method]} (first {ms[0]}); "
+              f"steps 1-{SSL_CHECKED_STEPS} vs the same steps on CPU tensors from the card's "
+              f"state (loss, gradient of each leaf's largest, parameters): {errs}")
+    steps = SSL_ORACLE_STEPS
+    ocfg = vit_ssl.ViTSelfSupConfig(**{**vit_ssl.VIT_SSL_ORACLE, "steps": steps})
+    t0 = time.perf_counter()
+    trained, hist = vit_ssl.train_vit_selfsup(vol, sd, cfg, ocfg, seed=seed,
+                                              log_every=max(1, steps // 10), device="cuda")
+    dt = time.perf_counter() - t0
+    if not all(np.isfinite(h["loss"]) for h in hist) or set(trained) != set(sd):
+        raise AssertionError(f"VIT_SSL_ORACLE: {hist}")
+    print(f"vit_ssl VIT_SSL_ORACLE (dino, adjacent slices): {steps} steps in {dt} s, loss "
+          f"trajectory {[(h['step'], round(h['loss'], 5)) for h in hist]}")
+    return trained
+
+
+def phase_quality(seed, trained, size=128):
+    """5f: the quality harness at ``size``³ on ViT-S/8: the fast-mode A/B
+    (``fastmode_quality_experiment``, fos 32) and the refinement A/B
+    (``refinement_quality_experiment`` on the ViT's fos-32 features: the
+    bilateral solver and the island filter), on the random weights (per-op
+    blocks: the attention kernel) and on the weights trained in 5e (fused
+    blocks: the fused block kernel); mIoU, stage times and the launch
+    counters of each run, which must show the attention or fused block, the
+    similarity, splat, slice and blur kernels. Then ``ntf_predict`` in
+    parity mode (fp32) through the kernels and through the plain twins on
+    the card: the predictions differ on at most 1e-3 of the voxels (phase
+    6's knife-edge share)."""
+    cfg = resolve_model("vits8")
+    counted = (attention, fused_block, similarity) + BLS_KERNELS
+    weights = {"random": (init_vit_params(cfg, (0, seed)), "xla"), "trained": (trained, "fused")}
+    for label, (sd, block_impl) in weights.items():
+        for fn in counted:
+            fn.launches = 0
+        ex = ExtractConfig(feature_output_size=size // 4, compute_dtype="bfloat16",
+                           block_impl=block_impl)
+        fast = quality.fastmode_quality_experiment(size, sd, cfg, ex, seed=seed, device="cuda")
+        vol_t, _ = make_multiclass_volume(size, seed=seed, device="cuda")
+        feats, t_feats = card_ms(lambda: extract_features(vol_t, sd, cfg, ex, device="cuda")["k"])
+        refined, t_ref = card_ms(lambda: quality.refinement_quality_experiment(
+            size, seed=seed, features=feats, feature_source=f"vit-{label}", device="cuda"))
+        n = {fn.__name__: fn.launches for fn in counted}
+        block = "attention" if block_impl == "xla" else "fused_block"
+        if min(n[block], n["similarity"], n["bls_splat"], n["bls_slice"], n["bls_blur"]) == 0:
+            raise AssertionError(f"quality {label}: a kernel was not launched: {n}")
+        print(f"quality {label} weights ({block_impl} blocks), {size}^3 easy phantom, fos "
+              f"{size // 4}: fast-mode A/B mIoU full {fast['full']['mIoU_fg']} fast "
+              f"{fast['fast']['mIoU_fg']} (delta {fast['iou_delta']}), extract s full "
+              f"{fast['full']['extract_s']} fast {fast['fast']['extract_s']}, similarity s "
+              f"{fast['full']['similarity_s']}; refinement A/B mIoU base "
+              f"{refined['base']['mIoU_fg']} bls {refined['bls']['mIoU_fg']} island "
+              f"{refined['island']['mIoU_fg']} bls_island {refined['bls_island']['mIoU_fg']} "
+              f"(ceiling {refined['grid_ceiling']['mIoU_fg']}), features {t_feats} ms, the four "
+              f"cells {t_ref} ms; launches {n}")
+    vol, labels = make_multiclass_volume(size, seed=seed, device="cuda")
+    ann = annotations_from_labels(labels, 256, "both", rng=np.random.default_rng(seed),
+                                  device="cuda")
+    ex = ExtractConfig(feature_output_size=size // 4, precision="highest")
+    got, times = quality.ntf_predict(vol, trained, cfg, ex, ann, device="cuda")
+    plain_sim = functools.partial(compute_similarities, impl="plain")
+    with mock.patch.object(quality, "compute_similarities", plain_sim):
+        want, _ = quality.ntf_predict(vol, trained, cfg, dataclasses.replace(ex, attn_impl="plain"),
+                                      ann, device="cuda")
+    differ = (got != want).count_nonzero().item()
+    if got.shape != vol.shape or differ > 1e-3 * got.numel():
+        raise AssertionError(f"ntf_predict kernels vs plain twins: {differ} voxels differ")
+    print(f"quality ntf_predict (fp32, trained weights) kernels vs plain twins on the card: "
+          f"{differ} of {got.numel()} voxels differ; stage s {times}")
+
+
+def _gloo_cuda_rank(rank, port, out_path):
+    """One of two ranks on one card over gloo with CUDA tensors: the sharded
+    extraction and similarity. Any error, gloo refusing CUDA tensors too,
+    fails the rank and so the phase."""
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=2, rank=rank,
+                                         timeout=datetime.timedelta(seconds=60))
+    cfg = resolve_model("vits8")
+    vol, _ = phantom(32, 3)
+    ex = ExtractConfig(feature_output_size=16, compute_dtype="bfloat16")
+    feats = extract_features_sharded(vol, init_vit_params(cfg, (0, 0)), cfg, ex, make_mesh(),
+                                     device="cuda")["k"]
+    f, q, m = similarity_inputs(feats)
+    sims = similarity_sharded(f, q, m, make_mesh())
+    if rank == 0:
+        torch.save({"feats": feats.cpu(), "sims": sims.cpu()}, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def similarity_inputs(feats):
+    """(N, F) voxel features of a feature volume, 5 × 64 queries drawn from
+    them and the class-mean matrix: a similarity call of the request's form."""
+    f = feats.reshape(feats.shape[0], -1).T.contiguous()
+    idx = torch.from_numpy(np.random.default_rng(0).choice(f.shape[0], 320)).to(f.device)
+    m = torch.from_numpy(class_mean_matrix([64] * 5, 320)).to(f.device)
+    return f, f[idx].contiguous(), m
+
+
+def phase_parallel(seed, workdir: Path, fos=64):
+    """5g: the multi-device layer at world size 1 on NCCL (one H100): the
+    sharded extraction (128³, ViT-S/8, fos 64, bf16) and similarity are
+    ``torch.equal`` to the plain extraction and the similarity kernel; the
+    pipeline-parallel forward with one stage (one microbatch: equal; two:
+    1e-5 of max|ref|) and the tensor-parallel forward with ``model=1``
+    (1e-5 of max|ref|: its row biases are added after the product) against
+    the plain forward, fp32; ``infer --data-parallel`` under the one-rank
+    group writes the plain CLI's artifact (phase 6's) bit for bit. Then two
+    ranks on the one card over gloo with CUDA tensors: what they compute is
+    held against the plain path (1e-5 of max|ref|); an error in either rank,
+    gloo refusing the CUDA tensors too, fails the phase."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    port = free_port()
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=1, rank=0)
+    try:
+        cfg = resolve_model("vits8")
+        sd = init_vit_params(cfg, (0, seed))
+        mesh = make_mesh()
+        vol = np.load(workdir / "volume.npy")
+        ex = ExtractConfig(feature_output_size=fos, compute_dtype="bfloat16")
+        n0 = attention.launches
+        got, t_sharded = card_ms(lambda: extract_features_sharded(vol, sd, cfg, ex, mesh,
+                                                                  device="cuda")["k"])
+        n_attn = attention.launches - n0
+        want, t_plain = card_ms(lambda: extract_features(vol, sd, cfg, ex, device="cuda")["k"])
+        assert_equal("sharded extraction, one rank", got, want)
+        f, q, m = similarity_inputs(want)
+        assert_equal("sharded similarity, one rank", similarity_sharded(f, q, m, mesh),
+                     similarity(f, q, m))
+        images = torch.randn((4, 3, 224, 224), generator=torch.Generator().manual_seed(seed)
+                             ).to("cuda")
+        model = VisionTransformer.from_state_dict(cfg, sd).to("cuda")
+        ref = model.forward_raw(images, precision="highest")
+        pipe = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("pipe",))
+        sd_c = {k: v.to("cuda") for k, v in sd.items()}
+        pp1 = pp_vit_forward(sd_c, images, cfg, pipe, n_micro=1, precision="highest",
+                             attn_impl="auto")
+        pp2 = pp_vit_forward(sd_c, images, cfg, pipe, n_micro=2, precision="highest",
+                             attn_impl="auto")
+        tp = tp_vit_forward(shard_params(sd_c, mesh), images, cfg, mesh, precision="highest")
+        for name, out in (("pipeline, one stage, one microbatch", pp1),):
+            for o, r in zip(out, ref):
+                assert_equal(name, o, r)
+        errs = [check_rel(name, o, r, 1e-5) for name, out in
+                (("pipeline, one stage, two microbatches", pp2), ("tensor parallel, model=1", tp))
+                for o, r in zip(out, ref)]
+        dp = workdir / "dp_features.npy"
+        infer.main(["--data-path", str(workdir / "volume.npy"), "--dino-model", "vits8",
+                    "--feature-output-size", str(fos), "--compute-dtype", "bfloat16",
+                    "--data-parallel", "--cache-path", str(dp)])
+        plain_art = np.load(workdir / f"volume_vits8_all_features{fos}.npy",
+                            allow_pickle=True)[()]
+        if not np.array_equal(np.load(dp, allow_pickle=True)[()]["k"], plain_art["k"]):
+            raise AssertionError("infer --data-parallel on one rank: not the plain artifact")
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"parallel, one rank on NCCL: sharded extraction {vol.shape} fos {fos} ({n_attn} "
+          f"attention launches) equal to the plain one ({t_sharded} ms vs {t_plain} ms), sharded "
+          f"similarity equal to the kernel's; pipeline forward (1 stage) equal with one "
+          f"microbatch, pipeline with two and tensor parallel (model=1) within {errs} of the "
+          f"plain forward; infer --data-parallel writes the plain artifact")
+
+    with tempfile.TemporaryDirectory(prefix="vittf_gloo_") as tmp:
+        out_path = Path(tmp) / "rank0.pt"
+        torch.multiprocessing.start_processes(_gloo_cuda_rank, args=(free_port(), out_path),
+                                              nprocs=2, start_method="spawn", join=True)
+        res = torch.load(out_path, weights_only=False)
+    vol, _ = phantom(32, 3)
+    ex = ExtractConfig(feature_output_size=16, compute_dtype="bfloat16")
+    want = extract_features(vol, init_vit_params(cfg, (0, 0)), cfg, ex, device="cuda")["k"]
+    err = check_rel("two gloo ranks: sharded extraction", res["feats"].cuda(), want, 1e-5)
+    f, q, m = similarity_inputs(want)
+    err_s = check_rel("two gloo ranks: sharded similarity", res["sims"].cuda(),
+                      similarity(f, q, m), 1e-5)
+    print(f"parallel, two ranks on one card over gloo with CUDA tensors: gloo takes them; "
+          f"sharded extraction 32^3 within {err}, similarity within {err_s} of one process")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def device_breakdown(prof, wall_s: float, label: str, top: int = 6):
     """Print device busy time, idle share and the top kernels of a trace.
 
@@ -2536,6 +2862,9 @@ def main() -> int:
         phase_served(args.seed, Path(tmp), vol, labels,
                      Path(tmp) / "volume_vits8_all_features64.npy")
         n_sim += phase_tools(args.seed, Path(tmp))
+        trained = phase_vit_ssl(args.seed)
+        phase_quality(args.seed, trained)
+        phase_parallel(args.seed, Path(tmp))
     if args.profile:
         phase_profile(args.seed)
 

@@ -32,7 +32,8 @@ def _both(params, vol, **kw):
     jcfg = jf.ExtractConfig(precision="highest", attn_impl="xla", **kw)
     tcfg = tf.ExtractConfig(precision="highest", **kw)
     want = jf.extract_features(jnp.asarray(vol), params, TINY, jcfg)["k"]
-    got = tf.extract_features(vol, params_from_jax(as_numpy_tree(params)), port_cfg(TINY), tcfg)["k"]
+    got = tf.extract_features(vol, params_from_jax(as_numpy_tree(params)), port_cfg(TINY), tcfg,
+                              device="cpu")["k"]
     return got.numpy(), np.asarray(want)
 
 
@@ -73,6 +74,7 @@ def test_golden_features():
         vol, tmodel.state_dict(), port_cfg(TINY),
         ExtractConfig(feature_output_size=4, slice_along="all", batch_size=4,
                       precision="highest"),
+        device="cpu",
     )["k"]
     np.testing.assert_allclose(got.numpy(), golden["features"], rtol=1e-5, atol=1e-6)
 
@@ -115,7 +117,7 @@ def _fused_both(params, monkeypatch, block_impl):
     want = jf.extract_features(jnp.asarray(vol), params, TINY,
                                jf.ExtractConfig(attn_impl="xla", **kw))["k"]
     got = tf.extract_features(vol, params_from_jax(as_numpy_tree(params)), port_cfg(TINY),
-                              tf.ExtractConfig(**kw))["k"]
+                              tf.ExtractConfig(**kw), device="cpu")["k"]
     want = np.asarray(want)
     assert got.shape == want.shape
     # the bf16 block-stack contract (tests_tpu/test_kernels_tpu.py)
@@ -131,6 +133,7 @@ def test_fused_block_impl_not_ported(params, monkeypatch):
         np.random.default_rng(3).random((16, 16, 16)).astype(np.float32),
         params_from_jax(as_numpy_tree(params)), port_cfg(TINY),
         tf.ExtractConfig(feature_output_size=4, batch_size=4, compute_dtype="bfloat16"),
+        device="cpu",
     )["k"]
     assert not torch.equal(got, xla)  # the blocks really ran fused
 
@@ -143,4 +146,5 @@ def test_fused_block_impls_match_jax(params, monkeypatch, block_impl):
 def test_unknown_block_impl_raises(params):
     cfg = tf.ExtractConfig(feature_output_size=4, block_impl="fused_nomax")
     with pytest.raises(ValueError, match="block_impl"):
-        tf.extract_features(np.zeros((8, 8, 8), np.float32), {}, port_cfg(TINY), cfg)
+        tf.extract_features(np.zeros((8, 8, 8), np.float32), {}, port_cfg(TINY), cfg,
+                            device="cpu")

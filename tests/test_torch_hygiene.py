@@ -35,7 +35,9 @@ def test_port_imports_no_jax():
         "        'pipeline.visualize', 'models.serialization', 'core.synthetic', 'cli.synth',\n"
         "        'cli.convert_weights', 'models.cnn3d', 'train.utils', 'train.losses',\n"
         "        'train.gather', 'train.moco', 'train.probe', 'train.optim', 'train.contrastive',\n"
-        "        'train.dense', 'train.intra_clr', 'train.paws', 'cli.train', 'cli.sweep', '_lazy'}\n"
+        "        'train.dense', 'train.intra_clr', 'train.paws', 'cli.train', 'cli.sweep', '_lazy',\n"
+        "        'train.vit_ssl', 'pipeline.quality', 'parallel', 'parallel.mesh', 'parallel.extract',\n"
+        "        'parallel.pipeline_parallel'}\n"
         "assert {'vittf_tpu_torch.' + n for n in need} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'vittf_tpu.')) or m == 'vittf_tpu')\n"
         "assert not bad, bad\n"
@@ -140,8 +142,8 @@ def test_infer_data_parallel_on_one_rank_is_the_plain_path(tmp_path, monkeypatch
     CLI's ``--data-parallel`` artifact (its sharded path over the 8 virtual
     CPU devices) within 1e-5 (fp32 artifacts, parity mode; twelve ViT-S/8
     blocks put a few values 1.8e-6 apart, where the golden features' tiny
-    model holds 1e-6); more than one rank is refused until the multi-device
-    layer."""
+    model holds 1e-6). More than one rank takes the sharded path:
+    ``tests/test_torch_parallel.py::test_infer_data_parallel_over_ranks``."""
     import numpy as np
 
     from vittf_tpu.cli import infer as jax_infer
@@ -159,9 +161,6 @@ def test_infer_data_parallel_on_one_rank_is_the_plain_path(tmp_path, monkeypatch
     assert out["dp"].dtype == np.float32 and out["dp"].shape == want.shape == (384, 4, 4, 4)
     np.testing.assert_array_equal(out["dp"], out["plain"])
     np.testing.assert_allclose(out["dp"], want, rtol=1e-5, atol=1e-5)
-    monkeypatch.setattr(infer, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="more than one rank"):
-        infer.main(args + ["--cpu", "--data-parallel", "--cache-path", str(tmp_path / "x.npy")])
 
 
 def test_serve_requires_cuda_without_cpu_flag(tmp_path, monkeypatch):
@@ -234,3 +233,71 @@ def test_shipped_headers_are_hashed():
 
     names = {p.name for p in kernels._sources()}
     assert {"attention.cu", "attention_core.cuh", "async_copy.cuh", "splat_ordered.cuh"} <= names
+
+
+# public functions whose ``device`` default is the CPU by design: converters
+# of the JAX package's trees into host tensors
+CPU_DEFAULT_CONVERTERS = {"vittf_tpu_torch.models.cnn3d.params_from_jax"}
+
+
+def test_no_public_device_parameter_defaults_to_the_cpu():
+    """Every public function, method and class of the port takes the card
+    when no device is given (``utils.tensor.resolve_device``: the first CUDA
+    device or a RuntimeError); none defaults ``device`` to the CPU but the
+    named converters."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import torch
+
+    import vittf_tpu_torch
+
+    found, cpu_default = 0, []
+    for info in pkgutil.walk_packages(vittf_tpu_torch.__path__, "vittf_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else []
+            if inspect.isclass(obj):
+                fns = [(f"{name}.{m}", f) for m, f in vars(obj).items()
+                       if (not m.startswith("_") or m == "__init__") and inspect.isfunction(f)]
+            for qual, fn in fns:
+                param = inspect.signature(fn).parameters.get("device")
+                if param is None:
+                    continue
+                found += 1
+                d = param.default
+                if (d == "cpu" or (isinstance(d, torch.device) and d.type == "cpu")) and \
+                        f"{mod.__name__}.{qual}" not in CPU_DEFAULT_CONVERTERS:
+                    cpu_default.append(f"{mod.__name__}.{qual}")
+    assert found >= 30, found
+    assert not cpu_default, cpu_default
+
+
+@pytest.mark.parametrize("entry", ["extract_features", "extract_features_streamed",
+                                   "annotations_from_labels"])
+def test_entry_points_take_the_card_or_raise(entry, monkeypatch):
+    """With no device given, the three entry points that used to default to
+    the CPU raise when no CUDA device is visible, and never run there."""
+    import numpy as np
+    import torch
+
+    from tests.test_torch_vit import port_cfg
+    from tests.test_vit import TINY
+    from vittf_tpu_torch.models.vit import init_vit_params
+    from vittf_tpu_torch.pipeline.annotations import annotations_from_labels
+    from vittf_tpu_torch.pipeline.features import ExtractConfig, extract_features
+    from vittf_tpu_torch.pipeline.streamed import extract_features_streamed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vol = np.zeros((8, 8, 8), np.float32)
+    sd = init_vit_params(port_cfg(TINY))
+    call = {
+        "extract_features": lambda: extract_features(vol, sd, port_cfg(TINY), ExtractConfig()),
+        "extract_features_streamed": lambda: extract_features_streamed(vol, sd, port_cfg(TINY)),
+        "annotations_from_labels": lambda: annotations_from_labels(vol.astype(np.uint8) + 1, 4),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()

@@ -91,7 +91,7 @@ def test_annotations_from_labels_same_coordinates(mode):
     lab[0:4, 15:20, 12:20] = 3
     for n in (25, 0.05):
         want = ja.annotations_from_labels(lab, n, mode, rng=np.random.default_rng(3))
-        got = ta.annotations_from_labels(lab, n, mode, rng=np.random.default_rng(3))
+        got = ta.annotations_from_labels(lab, n, mode, rng=np.random.default_rng(3), device="cpu")
         assert list(got) == list(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])

@@ -21,12 +21,6 @@ EXCEPTIONS = {
                                 "params_from_jax / params_to_jax convert)",
     "vit_forward": "a method of the port's VisionTransformer",
     "vit_forward_raw": "a method of the port's VisionTransformer",
-    "split_qkv": "comes with the differentiable ViT forward (ROADMAP §A 9c)",
-    "make_mesh": "parallel: the multi-device layer (ROADMAP §A 10)",
-    "shard_params": "parallel: the multi-device layer (ROADMAP §A 10)",
-    "vit_param_shardings": "parallel: the multi-device layer (ROADMAP §A 10)",
-    "extract_features_sharded": "parallel: the multi-device layer (ROADMAP §A 10)",
-    "similarity_sharded": "parallel: the multi-device layer (ROADMAP §A 10)",
 }
 PACKAGES = sorted(str(p.parent.relative_to(REPO / "vittf_tpu")).replace("/", ".")
                   for p in (REPO / "vittf_tpu").rglob("__init__.py"))
@@ -45,9 +39,6 @@ def jax_init_names(package: str) -> list[str]:
 @pytest.mark.parametrize("package", PACKAGES)
 def test_port_init_resolves_the_jax_names(package):
     names = jax_init_names(package)
-    if package == "parallel":  # no port package yet: every name is an exception
-        assert names and set(names) <= set(EXCEPTIONS)
-        return
     port = importlib.import_module("vittf_tpu_torch" + ("" if package == "." else "." + package))
     missing = [n for n in names if n not in EXCEPTIONS and not hasattr(port, n)]
     assert not missing, missing
@@ -65,8 +56,39 @@ def test_exceptions_are_all_still_jax_names():
     assert set(EXCEPTIONS) <= jax_names
     import vittf_tpu_torch.models as models
 
-    for name in ("convert_torch_state_dict", "vit_forward", "split_qkv"):
+    for name in ("convert_torch_state_dict", "vit_forward"):
         assert not hasattr(models, name)
+
+
+# the modules of the last slice: each public name of the JAX module (read
+# from its text) is the port module's
+SLICE_MODULES = ["train/vit_ssl.py", "pipeline/quality.py", "parallel/mesh.py",
+                 "parallel/extract.py", "parallel/pipeline_parallel.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_port_module_has_the_jax_modules_public_names(rel):
+    tree = ast.parse((REPO / "vittf_tpu" / rel).read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and not n.name.startswith("_")]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name) and t.id.isupper()]
+    assert names
+    port = importlib.import_module("vittf_tpu_torch." + rel[:-3].replace("/", "."))
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, missing
+    for n in names:
+        obj = getattr(port, n)
+        assert not callable(obj) or obj.__module__.startswith("vittf_tpu_torch."), n
+
+
+def test_train_and_pipeline_export_the_jax_names():
+    """``vittf_tpu_torch.{train,pipeline,parallel}`` resolve every name their
+    JAX packages export, with the slice's modules in place."""
+    for package in ("train", "pipeline", "parallel"):
+        port = importlib.import_module(f"vittf_tpu_torch.{package}")
+        for name in jax_init_names(package):
+            assert getattr(port, name).__module__.startswith("vittf_tpu_torch."), name
 
 
 def test_make_3d_and_norm_mean_std_match_jax(rng):

@@ -35,8 +35,9 @@ def _check(params, vol, chunk_batches=8, **kw):
                         jf.ExtractConfig(precision="highest", attn_impl="xla", **_kw(**kw)),
                         chunk_batches=chunk_batches)["k"]
     tcfg = tf.ExtractConfig(precision="highest", **_kw(**kw))
-    got = extract_features_streamed(vol, sd, port_cfg(TINY), tcfg, chunk_batches=chunk_batches)["k"]
-    resident = tf.extract_features(vol, sd, port_cfg(TINY), tcfg)["k"]
+    got = extract_features_streamed(vol, sd, port_cfg(TINY), tcfg, chunk_batches=chunk_batches,
+                                    device="cpu")["k"]
+    resident = tf.extract_features(vol, sd, port_cfg(TINY), tcfg, device="cpu")["k"]
     assert got.shape == tuple(want.shape) == resident.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got.numpy(), resident.numpy(), rtol=1e-5, atol=1e-6)
@@ -69,15 +70,17 @@ def test_streamed_fused_equals_resident(params):
     _, sd = params
     vol = np.random.default_rng(4).random((12, 16, 20)).astype(np.float32)
     cfg = tf.ExtractConfig(compute_dtype="bfloat16", block_impl="fused", **_kw())
-    got = extract_features_streamed(vol, sd, port_cfg(TINY), cfg, chunk_batches=2)["k"]
-    want = tf.extract_features(vol, sd, port_cfg(TINY), cfg)["k"]
+    got = extract_features_streamed(vol, sd, port_cfg(TINY), cfg, chunk_batches=2,
+                                    device="cpu")["k"]
+    want = tf.extract_features(vol, sd, port_cfg(TINY), cfg, device="cpu")["k"]
     assert torch.equal(got, want)
 
 
 def test_streamed_refuses_bad_input(params):
     _, sd = params
     with pytest.raises(ValueError, match="scalar"):
-        extract_features_streamed(np.zeros((3, 8, 8, 8), np.float32), sd, port_cfg(TINY))
+        extract_features_streamed(np.zeros((3, 8, 8, 8), np.float32), sd, port_cfg(TINY),
+                                  device="cpu")
     with pytest.raises(ValueError, match="chunk_batches"):
         extract_features_streamed(np.zeros((8, 8, 8), np.float32), sd, port_cfg(TINY),
-                                  chunk_batches=0)
+                                  chunk_batches=0, device="cpu")

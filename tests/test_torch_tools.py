@@ -341,7 +341,7 @@ def test_extract_features_mlp_source_matches_jax(tiny_params, kw):
     want = jf.extract_features(jnp.asarray(vol), tiny_params, CFG36,
                                jf.ExtractConfig(attn_impl="xla", **common))
     got = tf.extract_features(vol, params_from_jax(as_numpy_tree(tiny_params)), port_cfg(CFG36),
-                              tf.ExtractConfig(**common))
+                              tf.ExtractConfig(**common), device="cpu")
     assert set(got) == set(kw["return_keys"])
     for k in got:
         assert got[k].shape[0] == CFG36.embed_dim // 3
@@ -352,7 +352,7 @@ def test_unknown_feature_source_is_refused(tiny_params):
     with pytest.raises(ValueError, match="feature_source"):
         tf.extract_features(np.zeros((8, 8, 8), np.float32),
                             params_from_jax(as_numpy_tree(tiny_params)), port_cfg(CFG36),
-                            tf.ExtractConfig(feature_source="cls"))
+                            tf.ExtractConfig(feature_source="cls"), device="cpu")
 
 
 def test_clip_conversion_path(tmp_path):
@@ -374,7 +374,8 @@ def test_clip_conversion_path(tmp_path):
     assert tclip.CLIP_ARCHS["clip_vitl14"].patch_size == 14
     out = tf.extract_features(np.random.default_rng(0).random((8, 8, 8)).astype(np.float32), loaded,
                               cfg, tf.ExtractConfig(feature_output_size=2, feature_source="mlp",
-                                                    precision="highest"))
+                                                    precision="highest"),
+                              device="cpu")
     assert out["k"].shape == (CFG36.embed_dim // 3, 2, 2, 2)
 
 

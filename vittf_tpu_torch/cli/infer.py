@@ -10,14 +10,20 @@ draws them (``PRNGKey(0)``), so both CLIs extract the same features.
 ``--block-impl fused`` runs every non-final ViT block through the fused
 block kernel (bf16); ``--streamed`` keeps the volume in host memory and
 sends it to the device in chunks. The dispatch is the JAX CLI's:
-``--streamed`` first, the sharded path only when more than one rank is
-present, the plain path otherwise; so ``--data-parallel`` with one rank (no
-process group, or a group of one) writes the plain artifact, and with more
-raises ``NotImplementedError`` (the multi-device layer, ROADMAP §A 10, is
-not ported yet).
+``--streamed`` first, then ``--data-parallel`` over the ranks of a process
+group when there is more than one (``parallel.extract_features_sharded``:
+slice batches split over the ranks, one all-reduce), the plain path
+otherwise; so ``--data-parallel`` with one rank (no process group, or a
+group of one) writes the plain artifact. Several ranks come from
+``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``; NCCL on the cards, a card a rank by ``LOCAL_RANK``; gloo
+with ``--cpu``), and only rank 0 writes the artifact:
+
+    torchrun --nproc_per_node 1 -m vittf_tpu_torch.cli.infer --data-path v.npy --data-parallel
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 from argparse import ArgumentParser
@@ -90,19 +96,19 @@ def build_parser() -> ArgumentParser:
                         "quantized compact artifact")
     p.add_argument("--cpu", action="store_true", help="Run on the CPU")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard slice batches over ranks (one rank: the plain path; "
-                        "more are not ported yet)")
+                   help="shard slice batches over the ranks of a process group "
+                        "(torchrun); one rank: the plain path")
     p.add_argument("--overwrite", action="store_true")
     return p
 
 
-def select_device(cpu: bool) -> torch.device:
-    """``cpu`` or the first CUDA device; no silent fallback to the CPU."""
+def select_device(cpu: bool, local_rank: int = 0) -> torch.device:
+    """``cpu`` or CUDA device ``local_rank``; no silent fallback to the CPU."""
     if cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass --cpu to run on the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", local_rank)
 
 
 def load_params(args, cfg) -> dict[str, torch.Tensor]:
@@ -123,17 +129,28 @@ def load_params(args, cfg) -> dict[str, torch.Tensor]:
 
 
 def world_size() -> int:
-    """The ranks of the default process group; 1 without one."""
+    """The ranks of the default process group, or of the one ``torchrun``'s
+    environment describes; 1 without either."""
     dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
+def join_process_group(cpu: bool) -> None:
+    """The default process group from ``torchrun``'s environment (gloo with
+    ``--cpu``, NCCL on the cards), unless one exists."""
+    dist = torch.distributed
+    if not dist.is_initialized():
+        dist.init_process_group("gloo" if cpu else "nccl")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.data_parallel and not args.streamed and world_size() > 1:
-        raise NotImplementedError(
-            "--data-parallel over more than one rank is not ported yet (ROADMAP §A 10)")
-    device = select_device(args.cpu)
+    sharded = args.data_parallel and not args.streamed and world_size() > 1
+    device = select_device(args.cpu, int(os.environ.get("LOCAL_RANK", 0)) if sharded else 0)
+    if sharded:
+        join_process_group(args.cpu)
 
     from vittf_tpu_torch.core.io import load_volume, save_features
     from vittf_tpu_torch.models.dino import resolve_model
@@ -166,10 +183,17 @@ def main(argv=None) -> int:
         qkv = extract_features_streamed(
             vol, params, cfg, ex_cfg, chunk_batches=args.chunk_batches, device=device
         )
+    elif sharded:
+        from vittf_tpu_torch.parallel.extract import extract_features_sharded
+        from vittf_tpu_torch.parallel.mesh import make_mesh
+
+        qkv = extract_features_sharded(vol, params, cfg, ex_cfg, make_mesh(), device=device)
     else:
         qkv = extract_features(vol, params, cfg, ex_cfg, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    if sharded and torch.distributed.get_rank() != 0:
+        return 0  # every rank holds the result; rank 0 writes it
     print(
         f"Computed qkv along {args.slice_along} in {time.time() - t0}s, "
         f"saving now to: {cache_path}"

@@ -11,7 +11,10 @@ Numerics follow the JAX forward:
 - parity mode (module in fp32, ``precision='highest'``): fp32 throughout,
   exact erf GELU.
 The compute dtype is the module's parameter dtype (``model.to(dtype)``).
-Per-op blocks (``block_impl='xla'``) run attention through
+``forward_raw`` is the inference path (no autograd graph); ``forward`` is
+the same forward for training (``train/vit_ssl.py``): autograd
+differentiates it, and it takes the plain attention. Per-op blocks
+(``block_impl='xla'``) run attention through
 ``vittf_tpu_torch.ops.attention`` (the CUDA kernel on CUDA tensors) and the
 linears as plain ``torch`` matmuls; ``block_impl='fused*'`` runs each
 non-final bf16 block through ``vittf_tpu_torch.ops.fused_block`` (K3). The
@@ -141,6 +144,24 @@ def interpolate_pos_embed(
     return torch.cat([pos_embed[:, :1], patch_pos], dim=1)
 
 
+def embed_tokens(images, weight, bias, cls_token, pos_embed) -> torch.Tensor:
+    """Patch embed as a token GEMM + CLS + interpolated pos embed.
+
+    The stride-P conv (``weight`` (D, C, P, P)) is a disjoint patch regroup
+    and one (h·w, P²C) × (P²C, D) matmul, with the (i, j, c) contraction
+    order of the JAX package's HWIO kernel reshape.
+    """
+    D, C, P, _ = weight.shape
+    B, _, H, W = images.shape
+    h, ww = H // P, W // P
+    xp = images.to(weight.dtype).reshape(B, C, h, P, ww, P)
+    xp = xp.permute(0, 2, 4, 3, 5, 1).reshape(B, h * ww, P * P * C)
+    kernel = weight.permute(2, 3, 1, 0).reshape(P * P * C, D)
+    x = torch.matmul(xp, kernel) + bias
+    x = torch.cat([cls_token.expand(B, 1, D).to(x.dtype), x], dim=1)
+    return x + interpolate_pos_embed(pos_embed, (h, ww)).to(x.dtype)
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -226,22 +247,8 @@ class VisionTransformer(nn.Module):
         return model.eval().requires_grad_(False)
 
     def _embed(self, images: torch.Tensor) -> torch.Tensor:
-        """Patch embed as a token GEMM + CLS + interpolated pos embed.
-
-        The stride-P conv is a disjoint patch regroup and one
-        (h·w, P²C) × (P²C, D) matmul, with the (i, j, c) contraction order
-        of the JAX package's HWIO kernel reshape.
-        """
-        w = self.patch_embed.proj.weight  # (D, C, P, P)
-        D, C, P, _ = w.shape
-        B, _, H, W = images.shape
-        h, ww = H // P, W // P
-        xp = images.to(w.dtype).reshape(B, C, h, P, ww, P)
-        xp = xp.permute(0, 2, 4, 3, 5, 1).reshape(B, h * ww, P * P * C)
-        kernel = w.permute(2, 3, 1, 0).reshape(P * P * C, D)
-        x = torch.matmul(xp, kernel) + self.patch_embed.proj.bias
-        x = torch.cat([self.cls_token.expand(B, 1, D).to(x.dtype), x], dim=1)
-        return x + interpolate_pos_embed(self.pos_embed, (h, ww)).to(x.dtype)
+        return embed_tokens(images, self.patch_embed.proj.weight, self.patch_embed.proj.bias,
+                            self.cls_token, self.pos_embed)
 
     @torch.no_grad()
     def forward_raw(
@@ -269,6 +276,30 @@ class VisionTransformer(nn.Module):
         values; '_nomax' skips the softmax row max). An fp32 module keeps the
         per-op blocks, as the JAX package does.
         """
+        return self._forward(images, precision, attn_impl, return_qkv_last, capture,
+                             stop_after_capture, capture_thirds, block_impl)
+
+    def forward(
+        self,
+        images: torch.Tensor,
+        precision: str = "default",
+        return_qkv_last: bool = True,
+        capture: str = "qkv",
+        stop_after_capture: bool = False,
+        capture_thirds: tuple | None = None,
+    ):
+        """``forward_raw`` for training: the same embed, blocks and capture,
+        with an autograd graph (``torch.func.functional_call`` runs it on a
+        parameter dict). Attention takes the plain twin on every device: the
+        attention kernel has no backward, as the JAX package trains through
+        its XLA attention because the Pallas kernel has no JVP. Per-op
+        blocks only."""
+        return self._forward(images, precision, "plain", return_qkv_last, capture,
+                             stop_after_capture, capture_thirds, "xla")
+
+    def _forward(self, images, precision, attn_impl, return_qkv_last, capture,
+                 stop_after_capture, capture_thirds, block_impl):
+        """The forward of ``forward_raw`` and ``forward``."""
         if block_impl not in _BLOCK_IMPLS:
             raise ValueError(f"unknown block_impl: {block_impl!r}")
         x = self._embed(images)
@@ -299,3 +330,18 @@ class VisionTransformer(nn.Module):
             if cap is not None:
                 qkv_last = cap
         return _layer_norm(x, self.norm), qkv_last
+
+
+def split_qkv(
+    qkv: torch.Tensor, num_heads: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, N, 3D) → three (B, N, D) tensors via the DINO head reshape.
+
+    Matches the reference's post-hook reshape (infer.py:189-207): view as
+    (B, N, 3, heads, hd), take q/k/v, re-merge heads to (B, N, D).
+    """
+    B, N, threeD = qkv.shape
+    D = threeD // 3
+    parts = qkv.reshape(B, N, 3, num_heads, D // num_heads)
+    q, k, v = (parts[:, :, i] for i in range(3))
+    return q.reshape(B, N, D), k.reshape(B, N, D), v.reshape(B, N, D)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from vittf_tpu_torch.ops.morphology import binary_erosion, generate_binary_structure
+from vittf_tpu_torch.utils.tensor import resolve_device
 
 # reference compare_feat_sampling.py:15-16 thins >2^24-voxel masks by striding
 THIN_LIMIT = 2**24
@@ -145,7 +146,7 @@ def annotations_from_labels(
     num_samples: float,
     mode: str = "both",
     rng: np.random.Generator | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
     impl: str = "device",
 ) -> dict[str, np.ndarray]:
     """Draw per-class annotations from a GT label volume.
@@ -153,9 +154,9 @@ def annotations_from_labels(
     Reference semantics (predict_ntf.py:157-172): ``num_samples > 1`` is an
     absolute count (capped at the class size); ``0 < num_samples ≤ 1`` a
     fraction of class voxels; classes with zero samples are skipped; keys
-    are ``ntf{i}``. ``impl='device'``: the labels go to ``device`` once;
-    masks, shells and counts stay there. ``impl='host'``: numpy masks, and
-    the samplers' host path.
+    are ``ntf{i}``. ``impl='device'``: the labels go to ``device`` (the
+    first CUDA device when None) once; masks, shells and counts stay there.
+    ``impl='host'``: numpy masks, and the samplers' host path.
     """
     rng = _default_rng(rng)
     _check_impl(impl)
@@ -163,7 +164,9 @@ def annotations_from_labels(
     if impl == "host":
         labels = _host(labels)
     else:
-        labels = torch.as_tensor(np.ascontiguousarray(labels)).to(device)
+        if not torch.is_tensor(labels):
+            labels = torch.from_numpy(np.ascontiguousarray(labels))
+        labels = labels.to(resolve_device(device))
     n_classes = int(labels.max())
     out = {}
     for i in range(1, n_classes + 1):

@@ -31,6 +31,7 @@ from vittf_tpu_torch.utils.tensor import (
     IMAGENET_MEAN,
     IMAGENET_STD,
     imagenet_normalize,
+    resolve_device,
 )
 
 # (permute of (W,H,D) → slice stack, image dims (of im_sz), output axis the
@@ -277,8 +278,14 @@ def _pooled_to_volume(acc, keys, f_hw, o_ax, out_axis, D):
     return out
 
 
-def _extract_axis(model, vol, mima, model_cfg, cfg, axis, im_sz, feat_out_sz):
-    """One axis sweep → {key: pooled (F, o0, o1, o2) fp32 volume}."""
+def _extract_axis(model, vol, mima, model_cfg, cfg, axis, im_sz, feat_out_sz, select=None,
+                  reduce=None):
+    """One axis sweep → {key: pooled (F, o0, o1, o2) fp32 volume}.
+
+    ``select(n)``: the indices of the n slice batches this process runs (all
+    when None); ``reduce``: combines the processes' fp32 accumulators in
+    place before they become a volume (``parallel/extract.py``).
+    """
     slices, w_pool, (img_hw, f_hw, o_ax, out_axis) = _axis_slices(
         vol, model_cfg, axis, im_sz, feat_out_sz, cfg.slice_subsample,
         # the slice axis is pooled only in the 'all' sweep (infer.py:329 vs :326)
@@ -286,10 +293,14 @@ def _extract_axis(model, vol, mima, model_cfg, cfg, axis, im_sz, feat_out_sz):
     )
     key_idx = tuple(_qkv_index(k) for k in cfg.return_keys)
     B = cfg.batch_size
-    batches = ((s0, slices[s0:s0 + B].contiguous()) for s0 in range(0, slices.shape[0], B))
+    nb = -(-slices.shape[0] // B)
+    picked = range(nb) if select is None else select(nb)
+    batches = ((i * B, slices[i * B:(i + 1) * B].contiguous()) for i in picked)
     D = cfg.feature_dim(model_cfg.embed_dim)
     acc = _new_accumulators(len(key_idx), o_ax, f_hw, D, vol.device)
     acc = _accumulate(model, batches, acc, w_pool, img_hw, f_hw, key_idx, cfg, mima)
+    if reduce is not None:
+        reduce(acc)
     return _pooled_to_volume(acc, cfg.return_keys, f_hw, o_ax, out_axis, D)
 
 
@@ -320,18 +331,26 @@ def extract_features(
     params: dict,
     model_cfg: ViTConfig,
     cfg: ExtractConfig = ExtractConfig(),
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> dict[str, torch.Tensor]:
     """Feature extraction over one, or all three, volume axes.
 
     ``vol`` is a (W, H, D) scalar or (3, W, H, D) RGB volume (numpy or
     tensor); ``params`` a hub-layout ``state_dict``. Returns
-    {key: (F, o0, o1, o2) fp32 tensor on ``device``}; for
+    {key: (F, o0, o1, o2) fp32 tensor on ``device``}, the first CUDA device
+    when it is None (``device='cpu'`` runs on the CPU); for
     ``slice_along='all'`` the per-axis pooled volumes are summed.
     """
+    return _extract(vol, params, model_cfg, cfg, device)
+
+
+def _extract(vol, params, model_cfg, cfg, device, select=None, reduce=None):
+    """``extract_features``, each sweep over the slice batches ``select``
+    picks, its accumulators combined by ``reduce`` (``_extract_axis``)."""
     _check_block_impl(cfg.block_impl)
     if cfg.feature_source not in ("qkv", "mlp"):
         raise ValueError(f"unknown feature_source: {cfg.feature_source!r}")
+    device = resolve_device(device)
     if not torch.is_tensor(vol):
         vol = torch.from_numpy(np.ascontiguousarray(vol))
     if vol.dtype not in _KEEP_DTYPES:
@@ -349,7 +368,7 @@ def extract_features(
     out: dict[str, torch.Tensor] = {}
     for ax in axes:
         axis_feats = _extract_axis(
-            model, vol, mima, model_cfg, cfg, ax, im_sz, feat_out_sz
+            model, vol, mima, model_cfg, cfg, ax, im_sz, feat_out_sz, select, reduce
         )
         for k, v in axis_feats.items():
             if cfg.slice_along == "all":

@@ -30,6 +30,7 @@ from vittf_tpu_torch.pipeline.features import (
     _qkv_index,
     compute_im_sizes,
 )
+from vittf_tpu_torch.utils.tensor import resolve_device
 
 
 def extract_features_streamed(
@@ -38,13 +39,13 @@ def extract_features_streamed(
     model_cfg: ViTConfig,
     cfg: ExtractConfig = ExtractConfig(),
     chunk_batches: int = 8,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> dict[str, torch.Tensor]:
     """``extract_features`` over a host (W, H, D) scalar volume, streamed.
 
     ``chunk_batches`` bounds device residency to ``chunk_batches ·
     batch_size`` raw slices. Returns {key: (F, o0, o1, o2) fp32 tensor on
-    ``device``}.
+    ``device``}, the first CUDA device when it is None.
     """
     _check_block_impl(cfg.block_impl)
     vol = np.asarray(vol)
@@ -52,7 +53,7 @@ def extract_features_streamed(
         raise ValueError("streamed extraction handles scalar (W, H, D) volumes")
     if chunk_batches < 1:
         raise ValueError(f"chunk_batches must be >= 1, got {chunk_batches}")
-    device = torch.device(device)
+    device = resolve_device(device)
     im_sz, feat_out_sz = compute_im_sizes(vol.shape, cfg.feature_output_size, model_cfg.patch_size)
     model = _build_model(params, model_cfg, cfg.compute_dtype, device, grayscale=True)
     # one pass over the host array for the normalization scalars
