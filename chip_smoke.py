@@ -100,24 +100,32 @@ quality harness and the multi-device layer. Phases:
    extraction with loud weights, kernels vs the plain twin;
 8. refinement path: ``predict_ntf --bilateral-solver --largest-island`` on
    the same volume and features, then three requests with
-   ``bilateral_solver=True, bls_shape_bucket=8``; the splat, slice and blur
-   counters must have risen in both, the last request's maps agree with
-   the plain twins' (|Δ| ≤ 1 on ≤ 1e-3 of the voxels) and equal their own
-   repeat bit for bit;
+   ``bilateral_solver=True, bls_shape_bucket=8``, twice (the first round
+   captures each request's solve graph, the second replays it); the splat,
+   slice and blur counters must have risen in both, the last request's maps
+   agree with the plain twins' (|Δ| ≤ 1 on ≤ 1e-3 of the voxels) and equal
+   their own repeat bit for bit; the graph cache's hits and misses; then,
+   the cache dropped, a request's graphed solve ``torch.equal`` to the eager
+   body on its first call and on replay (``witness_fresh``);
 9. whole-grid refinement of five classes on a 256³ sim grid, kernels vs
-   plain (same contract, wall times of both);
+   plain (same contract, wall times of both), memory reserved before and
+   after, and a whole-grid chunk's graph held as in phase 8;
 10. ``infer --fast`` on a 256³ phantom;
 11. a 64³ extraction through the kernels vs the plain twins;
 12. blocked path: the whole-grid refinement of five classes at 128³ with
     ``pixel_impl='reblock'`` against ``'auto'`` and ``'scatter'``, then
     ``apply_bilateral_solver2d`` on 2048² and 512² phantom slices, kernels vs
     ``'scatter'`` (the blocked kernels' counters must have risen, the fused
-    splat's and slice's must not), timed beside the fused kernels called
-    directly on the image as one z-plane;
+    splat's and slice's must not), timed as a graph replay beside the eager
+    body and the fused kernels called directly on the image as one z-plane;
+    the 128³ ``'reblock'`` and ``'auto'`` refinements and each 2-D solve
+    held as in phase 8, first call and replay;
 13. coarse-to-fine: phase 9's refinement with ``bs_params={'coarse_to_fine':
-    True}`` beside the direct one (wall, peak memory, deviation), and one
-    class on a 512³ grid, direct and coarse-to-fine; one class's float solves
-    are held to mean |delta| <= 2e-3 and equal > 0.5 masks on >= 0.999;
+    True}`` and with ``fine_maxiter=25`` beside the direct one (wall, peak
+    memory, maps' deviation from the direct ones, memory reserved), its
+    graph held as in phase 8, and one class on a 512³ grid, direct and
+    coarse-to-fine; one class's float solves are held to mean |delta| <=
+    2e-3 and equal > 0.5 masks on >= 0.999;
 14. served path: ``serve --max-updates 4`` on a 128³ artifact directory,
     without and with ``--bilateral-solver``, while a thread writes
     ``annotations.npy`` four times (five classes; one class edited; a class
@@ -126,7 +134,8 @@ quality harness and the multi-device layer. Phases:
     repeat, bit-equal to the kernel's similarities through the plain twins'
     solve with a deterministic ``index_add_``, those similarities within
     phase 3's contract of the twin's, and within ±1 of the plain route made
-    so);
+    so); the first refined edit's graphed solve equals the eager body; the
+    graph cache's hits and misses, and which edits captured a graph;
 14a. tools path: the similarity kernel with no threshold on scores of either
     sign vs plain; ``compare_sampling_strategies`` at 64³ x 384 (5 similarity
     launches, maps vs the plain route within the uint8 contract);
@@ -156,8 +165,14 @@ quality harness and the multi-device layer. Phases:
     results held at 1e-5 (an error in either rank fails the phase);
 15. with ``--profile`` only: torch.profiler traces of a warm 128³
     extraction (per-op blocks and fused blocks), of three requests, of
-    three refined requests and of one PAWS and one dense trainer step at
-    128³ (device busy time, idle share, top kernels).
+    three refined requests (their solve graphs captured beforehand) and of
+    one PAWS and one dense trainer step at 128³ (device busy time, idle
+    share, top kernels).
+
+On CUDA tensors every bilateral solve in a kernel form runs as a CUDA
+graph replay (``ops/bilateral.py``, ``bilateral_solve_gray_batched``); the
+launch counters count the kernels a replay runs, and a key's first call
+counts its eager warm-up too.
 With ``--ptxas`` phase 1 also prints every kernel's registers, shared memory,
 spills and performance warnings.
 
@@ -203,7 +218,9 @@ from vittf_tpu_torch.pipeline.annotations import sample_uniform
 from vittf_tpu_torch.pipeline.baselines import compose_features, sample_train_data, svm_predict_device
 from vittf_tpu_torch.pipeline.compare_sampling import compare_sampling_strategies, normalize_features
 from vittf_tpu_torch.ops.attention import attention, attention_plain, multi_head_attention
+from vittf_tpu_torch.ops import bilateral as bilateral_module
 from vittf_tpu_torch.ops.bilateral import (
+    _bilateral_solve_eager,
     _blocked_pixel_view,
     _blur,
     _grid_extents,
@@ -289,6 +306,7 @@ SIM_N, SIM_F, SIM_PER_CLASS, SIM_C = 64**3, 384, 256, 5
 BLS_SS, BLS_SL, BLS_C = 7, 5, 5  # the refinement's grid (pipeline/refine.py) and 5 classes
 BLS_KERNELS = (bls_splat, bls_slice, bls_blur)
 BLOCKED_KERNELS = (bls_reblock, bls_unreblock, bls_splat_blocked, bls_slice_blocked)
+GRAPHS = bilateral_module._GRAPHS  # the captured solves: hits, misses, entries
 BLS2D_SS, BLS2D_SL = 24, 4  # the 2-D solver's default grid
 # published peaks of one H100 SXM at its full power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1245,18 +1263,73 @@ def loud_extraction(seed):
           f"(limit {0.02 * want.abs().max().item()})")
 
 
+@contextlib.contextmanager
+def graph_witness(label, calls=None):
+    """Hold the graphed bilateral solves made inside the block (the first
+    ``calls`` of them, or all) against the eager body on the same inputs,
+    ``torch.equal``: a key's first call (warm-up, capture, replay) and its
+    replays alike. The eager run's launches are not counted. Yields
+    {'first': n, 'replay': n}, the solves held."""
+    real = bilateral_module._graphed_solve
+    held = {"first": 0, "replay": 0}
+    counted = bilateral_module._WRAPPERS
+
+    def checked(target, luma, confidence, kw):
+        if calls is not None and sum(held.values()) >= calls:
+            return real(target, luma, confidence, kw)
+        misses = GRAPHS.misses
+        got = real(target, luma, confidence, kw)
+        kind = "first" if GRAPHS.misses > misses else "replay"
+        before = [fn.launches for fn in counted]
+        want = _bilateral_solve_eager(target, luma, confidence, **kw)
+        for fn, n in zip(counted, before):
+            fn.launches = n
+        assert_equal(f"{label}: graphed solve ({kind} call) vs the eager body", got, want)
+        held[kind] += 1
+        return got
+
+    with mock.patch.object(bilateral_module, "_graphed_solve", checked):
+        yield held
+
+
+def witness_fresh(label, *runs) -> dict:
+    """Drop every captured solve, then call each of ``runs`` under
+    ``graph_witness``; a first call and a replay must both be held. The
+    runs give one key other inputs, so a replay that read stale buffers
+    would differ from the eager body."""
+    GRAPHS.clear()
+    with graph_witness(label) as held:
+        for run in runs:
+            run()
+    if not held["first"] or not held["replay"]:
+        raise AssertionError(f"{label}: graphed solves held {held}, need a first call and a replay")
+    print(f"{label}: every graphed solve equals the eager body bit for bit ({held['first']} "
+          f"first calls, {held['replay']} replays)")
+    return held
+
+
+def graph_line(since: tuple[int, int]) -> str:
+    """The graph cache's hits and misses since ``since`` (``(hits,
+    misses)``), the entries it keeps and the card's reserved memory."""
+    hits, misses = GRAPHS.hits - since[0], GRAPHS.misses - since[1]
+    return (f"graph cache {hits} hits, {misses} misses (hit rate {hits / max(hits + misses, 1)}), "
+            f"{len(GRAPHS.entries)} kept; memory reserved {torch.cuda.memory_reserved() / 2**30} "
+            f"GiB, allocated {torch.cuda.memory_allocated() / 2**30} GiB")
+
+
 def bls_requests(vol, feat_t, anns, impl="auto"):
-    """Refined interactive requests; returns each one's maps, label volume
-    and wall seconds."""
+    """Refined interactive requests; returns each one's maps, label volume,
+    wall seconds and whether it captured a graph (a key's first call)."""
     out = []
     for ann in anns:
+        misses = GRAPHS.misses
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sims = compute_similarities(vol, feat_t, ann, bilateral_solver=True, bls_shape_bucket=8,
                                     impl=impl)
         pred = fuse_predictions(sims)
         torch.cuda.synchronize()
-        out.append((sims, pred, time.perf_counter() - t0))
+        out.append((sims, pred, time.perf_counter() - t0, GRAPHS.misses > misses))
     return out
 
 
@@ -1265,11 +1338,14 @@ def phase_refinement(seed, workdir: Path, vol, labels, feat_t):
     island filter, then refined requests with bucketed batched crops."""
     for fn in BLS_KERNELS:
         fn.launches = 0
+    since = (GRAPHS.hits, GRAPHS.misses)
     t0 = time.perf_counter()
     predict_ntf.main(["--data", str(workdir), "--num-samples", "256", "--seed", str(seed),
                       "--bilateral-solver", "--largest-island"])
     t_cli = time.perf_counter() - t0
     n_cli = [fn.launches for fn in BLS_KERNELS]
+    print(f"refinement path, predict CLI: {graph_line(since)}")
+    since = (GRAPHS.hits, GRAPHS.misses)
     pred = np.load(workdir / "ntf_pred256.0bothblsisl.npy")
     if pred.shape != (64, 64, 64) or pred.dtype != np.uint8 or pred.max() > 5 or not pred.any():
         raise AssertionError(f"refined prediction {pred.shape} {pred.dtype} max {pred.max()}")
@@ -1280,10 +1356,12 @@ def phase_refinement(seed, workdir: Path, vol, labels, feat_t):
     labels_f = np.flip(labels, axis=-3).copy()
     anns = [annotations_from_labels(labels_f, 256, "both", rng=np.random.default_rng(seed + r),
                                     device="cuda") for r in range(1, 4)]
+    # each request's key is captured on its first call; the second round replays
     reqs = bls_requests(vol, feat_t, anns)
+    replays = bls_requests(vol, feat_t, anns)
     n_all = [fn.launches for fn in BLS_KERNELS]
     n_req = [a - b for a, b in zip(n_all, n_cli)]
-    sims, pred_r, _ = reqs[-1]
+    sims, pred_r, *_ = reqs[-1]
     plain = compute_similarities(vol, feat_t, anns[-1], bilateral_solver=True,
                                  bls_shape_bucket=8, impl="plain")
     n_diff = sum(check_u8_maps(f"refined request map {k}", sims[k], plain[k]) for k in sims)
@@ -1291,16 +1369,24 @@ def phase_refinement(seed, workdir: Path, vol, labels, feat_t):
     again = bls_requests(vol, feat_t, anns[-1:])[0][0]
     for k in sims:
         assert_equal(f"refined request map {k}: repeat", again[k], sims[k])
+        assert_equal(f"refined request map {k}: second round", replays[-1][0][k], sims[k])
     if tuple(pred_r.shape) != (64, 64, 64):
         raise AssertionError(f"refined request prediction shape {tuple(pred_r.shape)}")
     req_ms = [r[2] * 1e3 for r in reqs]
+    replay_ms = [r[2] * 1e3 for r in replays]
     print(f"refinement path: predict CLI --bilateral-solver --largest-island {t_cli} s, "
           f"mIoU {metrics['mIoU']}; refined request p50 {float(np.median(req_ms))} ms "
-          f"(each {req_ms} ms); last request vs plain: {n_diff} voxels differ by 1; its repeat "
-          f"is bit-equal")
+          f"(each {req_ms} ms, captured a graph {[r[3] for r in reqs]}); second round p50 "
+          f"{float(np.median(replay_ms))} ms (each {replay_ms} ms, captured "
+          f"{[r[3] for r in replays]}); last request vs plain: {n_diff} voxels differ by 1; "
+          f"its repeat and second round are bit-equal")
+    print(f"refinement path, requests: {graph_line(since)}")
     print(f"launches (splat, slice, blur): CLI {n_cli}, requests {n_req}")
     if min(n_cli) == 0 or min(n_req) == 0:
         raise AssertionError(f"a bilateral kernel was not launched: CLI {n_cli}, requests {n_req}")
+    # a capture, then replays on the other draws where they crop to its bucketed
+    # shape (all three do here), and on the first draw again
+    witness_fresh("refined request", lambda: bls_requests(vol, feat_t, anns + anns[:1]))
     return n_all
 
 
@@ -1319,6 +1405,8 @@ def phase_whole_grid(seed):
     sims += 0.1 * torch.rand((C,) + shape, generator=gen, device="cuda")
     runs = {"scatter": [], "auto": []}
     outs = {}
+    since = (GRAPHS.hits, GRAPHS.misses)
+    reserved = torch.cuda.memory_reserved() / 2**30
     for impl in ("scatter", "auto", "auto", "scatter"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1326,8 +1414,12 @@ def phase_whole_grid(seed):
         torch.cuda.synchronize()
         runs[impl].append(time.perf_counter() - t0)
     n_diff = check_u8_maps("whole-grid refinement", outs["auto"], outs["scatter"])
-    print(f"whole-grid refinement {shape} C={C}: kernels {runs['auto']} s, plain "
-          f"{runs['scatter']} s; {n_diff} of {outs['auto'].numel()} voxels differ by 1")
+    print(f"whole-grid refinement {shape} C={C}: kernels {runs['auto']} s (the first captures "
+          f"the chunks' graph), plain {runs['scatter']} s; {n_diff} of {outs['auto'].numel()} "
+          f"voxels differ by 1; memory reserved before {reserved} GiB; {graph_line(since)}")
+    # two chunks of four classes: a capture and a replay on other classes
+    witness_fresh("whole-grid chunk", lambda: refine_similarities_batched(
+        sims, None, shape, ref_u8=ref))
 
 
 def whole_grid_case(size, seed, C):
@@ -1403,35 +1495,50 @@ def phase_blocked_path(seed, size=128, sizes_2d=(2048, 512)):
     (K6 + K7) against ``'auto'`` (K4/K5) and ``'scatter'``. Then the 2-D
     solver, which takes the blocked kernels with one row per cell. Returns
     the blocked kernels' launches in the path's own runs: the witness and the
-    first ``apply_bilateral_solver2d`` of each size."""
+    first two ``apply_bilateral_solver2d`` calls of each size (a capture and
+    a replay)."""
     for fn in BLS_KERNELS + BLOCKED_KERNELS:
         fn.launches = 0
     shape = (size,) * 3
     ref, sims = whole_grid_case(size, seed + 13, BLS_C)
-    outs, secs = {}, {}
+    outs, secs, captured = {}, {}, 0
     for impl in ("scatter", "auto", "reblock", "reblock", "auto", "scatter"):
+        misses = GRAPHS.misses
         outs[impl], dt, _ = timed_refine(sims, shape, ref, pixel_impl=impl)
         secs.setdefault(impl, []).append(dt)
+        captured += GRAPHS.misses - misses if impl == "reblock" else 0
     n_auto = check_u8_maps("reblock vs auto", outs["reblock"], outs["auto"])
     n_scatter = check_u8_maps("reblock vs scatter", outs["reblock"], outs["scatter"])
     n_witness = [fn.launches for fn in BLOCKED_KERNELS]
     print(f"witness {shape} C={BLS_C}: reblock {secs['reblock']} s, auto {secs['auto']} s, "
-          f"scatter {secs['scatter']} s; reblock vs auto {n_auto}, vs scatter {n_scatter} of "
-          f"{outs['auto'].numel()} voxels differ by 1; launches (reblock, unreblock, blocked "
-          f"splat, blocked slice) {n_witness}")
-    if n_witness != [6, 2, 2, 2]:
-        raise AssertionError(f"witness launches {n_witness}, expected [6, 2, 2, 2]")
+          f"scatter {secs['scatter']} s (the first 'reblock' and 'auto' runs capture); reblock "
+          f"vs auto {n_auto}, vs scatter {n_scatter} of {outs['auto'].numel()} voxels differ by "
+          f"1; launches (reblock, unreblock, blocked splat, blocked slice) {n_witness}")
+    # one solve a run (one chunk); the capturing call runs it twice (warm-up, replay)
+    solves = 2 + captured
+    if n_witness != [3 * solves, solves, solves, solves] or captured > 1:
+        raise AssertionError(f"witness launches {n_witness} with {captured} captures")
+    for impl in ("reblock", "auto"):  # the classes in reverse order replay the key
+        witness_fresh(f"{impl} whole-grid 128^3", *(
+            functools.partial(refine_similarities_batched, x, None, shape, ref_u8=ref,
+                              pixel_impl=impl) for x in (sims, sims.flip(0))))
     del outs, sims, ref
 
-    n_path = n_witness  # the witness, then the first 2-D solve of each size: no repeat, no timing
+    n_path = n_witness  # the witness, then the first two 2-D solves of each size, untimed
     for size in sizes_2d:
         r, t = phantom2d(size, seed + size)
         before = [fn.launches for fn in BLS_KERNELS + BLOCKED_KERNELS]
-        binary, solved = apply_bilateral_solver2d(t, r)
+        misses = GRAPHS.misses
+        with graph_witness(f"2-D solve {size}") as held:
+            # its key's first call (witness_fresh above dropped every graph)
+            binary, solved = apply_bilateral_solver2d(t, r)
+            apply_bilateral_solver2d(t.flip(0), r)  # a replay on another target
         after = [fn.launches for fn in BLS_KERNELS + BLOCKED_KERNELS]
         splat4, slice5, _, rb, urb, splat7, slice7 = (a - b for a, b in zip(after, before))
-        if (splat7, slice7) != (1, 1) or splat4 or slice5 or rb or urb:
-            raise AssertionError(f"2-D solve launches: {[a - b for a, b in zip(after, before)]}")
+        if (splat7, slice7) != (3, 3) or splat4 or slice5 or rb or urb \
+                or GRAPHS.misses - misses != 1 or held != {"first": 1, "replay": 1}:
+            raise AssertionError(f"2-D solve launches: {[a - b for a, b in zip(after, before)]}, "
+                                 f"graphed solves held {held}")
         n_path = [n + d for n, d in zip(n_path, (rb, urb, splat7, slice7))]
         binary_p, solved_p = apply_bilateral_solver2d(t, r, pixel_impl="scatter")
         err = check_close(f"2-D solver {size}", solved, solved_p, 0.0, 1e-3)
@@ -1449,15 +1556,17 @@ def phase_blocked_path(seed, size=128, sizes_2d=(2048, 512)):
         wall = time.perf_counter() - t0
         ms = {name: cuda_ms(fn, reps=3) for name, fn in (
             ("blocked", lambda: bilateral_solve_gray(t, r, c, **kw)),
+            ("eager", lambda: _bilateral_solve_eager(t[None], r[None], c[None], **kw)),
             ("fused", lambda: solve2d_fused(t, r, c)),
             ("scatter", lambda: bilateral_solve_gray(t, r, c, pixel_impl="scatter", **kw)),
         )}
         print(f"2-D solver ({size}, {size}) sigma ({BLS2D_SS}, {BLS2D_SL}): solved kernels vs "
               f"scatter max_abs_err {err}, masks differ on {n_mask} pixels, mask area "
               f"{int(binary.sum().item())}; apply_bilateral_solver2d wall {wall} s (with hole "
-              f"filling and the island filter); solve alone: blocked kernels {ms['blocked']} ms, "
-              f"fused kernels on one z-plane {ms['fused']} ms (max_abs_err between them {err_f}), "
-              f"scatter {ms['scatter']} ms")
+              f"filling and the island filter); solve alone: blocked kernels, graph replay "
+              f"{ms['blocked']} ms, op by op (the eager body) {ms['eager']} ms; fused kernels on "
+              f"one z-plane {ms['fused']} ms (max_abs_err between them {err_f}), scatter "
+              f"{ms['scatter']} ms")
     return n_path
 
 
@@ -1539,22 +1648,39 @@ def phase_coarse_to_fine(seed, cases=((256, BLS_C), (512, 1))):
     is scaled by its own 0.99·max before it is quantized, so a different peak
     vertex rescales a whole map: the maps of the batched refinement are held
     to a correlation of 0.9 per class, and their deviation is printed."""
+    c2f, c2f25 = {"coarse_to_fine": True}, {"coarse_to_fine": True, "fine_maxiter": 25}
     for size, C in cases:
         shape = (size,) * 3
         ref, sims = whole_grid_case(size, seed + 17, C)
         res = {}
-        for name, bs in (("direct", None), ("c2f", {"coarse_to_fine": True}),
-                         ("c2f", {"coarse_to_fine": True}), ("direct", None)):
+        since = (GRAPHS.hits, GRAPHS.misses)
+        reserved = torch.cuda.memory_reserved() / 2**30
+        # 25 fine steps (ROADMAP §C 7) at the whole grid's size only
+        order = (("direct", None), ("c2f", c2f)) + ((("c2f25", c2f25),) * 2 if C > 1 else ())
+        for name, bs in order + order[1::-1]:
             out, dt, peak = timed_refine(sims, shape, ref, bs_params=bs)
             res.setdefault(name, []).append((dt, peak))
             res[name + "_out"] = out
         stats, corr = map_deviation(res["c2f_out"], res["direct_out"])
         print(f"coarse-to-fine {shape} C={C}: direct {[r[0] for r in res['direct']]} s, peak "
               f"{res['direct'][0][1] / 2**30} GiB; coarse-to-fine {[r[0] for r in res['c2f']]} s, "
-              f"peak {res['c2f'][0][1] / 2**30} GiB; maps: {stats}")
+              f"peak {res['c2f'][0][1] / 2**30} GiB (each first run captures); maps: {stats}")
+        if "c2f25" in res:
+            stats25, corr25 = map_deviation(res["c2f25_out"], res["direct_out"])
+            print(f"coarse-to-fine {shape} C={C}, fine_maxiter 25: "
+                  f"{[r[0] for r in res['c2f25']]} s, peak {res['c2f25'][0][1] / 2**30} GiB; "
+                  f"maps vs direct: {stats25}")
+            if not corr25 > 0.9:
+                raise AssertionError(f"coarse-to-fine {shape} fine_maxiter 25: correlation {corr25}")
+        print(f"coarse-to-fine {shape} C={C}: memory reserved before {reserved} GiB; "
+              f"{graph_line(since)}")
         if not corr > 0.9 or not res["c2f_out"].any():
             raise AssertionError(f"coarse-to-fine {shape}: correlation {corr}")
         del res
+        if C > 1:
+            # two chunks of four classes: a capture and a replay on other classes
+            witness_fresh(f"coarse-to-fine {shape} C={C}", lambda: refine_similarities_batched(
+                sims, None, shape, ref_u8=ref, bs_params=c2f))
         coarse_to_fine_floats(shape, ref, sims[0])
         del ref, sims
         torch.cuda.empty_cache()
@@ -1627,7 +1753,7 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
         d.mkdir()
         np.save(d / "volume.npy", vol)
         shutil.copy(feats_path, d / feats_path.name)
-        answered, answers, secs = threading.Semaphore(0), [], []
+        answered, answers, secs, captured = threading.Semaphore(0), [], [], []
 
         def frontend():
             for frame in frames:
@@ -1641,17 +1767,25 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
 
         def on_update(n, dt):
             secs.append(dt)
+            captured.append(GRAPHS.misses)
             answered.release()
 
         watch = functools.partial(session_module.watch_directory, on_update=on_update)
         for fn in counted:
             fn.launches = 0
         thread = threading.Thread(target=frontend, daemon=True)
-        with mock.patch.object(session_module, "watch_directory", watch):
+        since = (GRAPHS.hits, GRAPHS.misses)
+        # the first edit's solve is held against the eager body (its time includes that run)
+        with mock.patch.object(session_module, "watch_directory", watch), \
+                graph_witness("served edit", calls=1) as held:
             thread.start()
             serve.main(["--data", str(d), "--max-updates", str(len(frames)), "--poll-interval",
                         "0.05"] + (["--bilateral-solver"] if solver else []))
         thread.join(timeout=300)
+        cache = graph_line(since)
+        captured = [m > p for m, p in zip(captured, [since[1]] + captured)]
+        if solver and sum(held.values()) != 1 or not solver and any(held.values()):
+            raise AssertionError(f"served path: graphed solves held {held}")
         launches.append([fn.launches for fn in counted])
         if len(answers) != len(frames):
             raise AssertionError(f"serve answered {len(answers)} of {len(frames)} edits")
@@ -1704,8 +1838,9 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
                 full_dev.append((got.int() - full[k].int()).abs().float().mean().item())
             prev = {k: (frame[k], sims[k]) for k in frame}
         line = (f"served path{' --bilateral-solver' if solver else ''}: 4 edits answered in "
-                f"{[x * 1e3 for x in secs]} ms; launches (similarity, splat, slice, blur) "
-                f"{launches[-1]}; ")
+                f"{[x * 1e3 for x in secs]} ms (captured a graph {captured}; {cache}; the "
+                f"first edit's solve equals the eager body: {held}); launches (similarity, "
+                f"splat, slice, blur) {launches[-1]}; ")
         print(line + (f"voxels of {sim_shape} that differ by 1, per edited map: answer vs a "
                       f"fresh recompute {n_diff} (the recompute equals its repeat bit for bit, "
                       f"and the plain twins' deterministic solve of the kernel's similarities "
@@ -2779,12 +2914,14 @@ def phase_profile(seed):
         wall = time.perf_counter() - t0
     device_breakdown(prof, wall, "3 interactive requests, 64^3 features")
 
-    bls_requests(vol, feats, anns[:1])  # warm-up
+    bls_requests(vol, feats, anns)  # warm-up: each request's solve graph captured
+    since = (GRAPHS.hits, GRAPHS.misses)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         bls_requests(vol, feats, anns)
         wall = time.perf_counter() - t0
-    device_breakdown(prof, wall, "3 refined requests (bilateral_solver, bucket 8), 64^3 features")
+    device_breakdown(prof, wall, "3 refined requests (bilateral_solver, bucket 8), 64^3 "
+                     f"features; {graph_line(since)}")
 
     phantom_128 = trainer_phantom(seed, 128)
     for name in ("PAWSTrainer", "DenseContrastiveTrainer"):
@@ -2886,6 +3023,7 @@ def main() -> int:
     ]
     if min(n for *_, n in kernel_list) == 0:
         raise AssertionError(f"a kernel was launched no time on its path: {kernel_list}")
+    print(f"bilateral solve graphs over the whole run: {graph_line((0, 0))}")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,

@@ -40,3 +40,14 @@ def test_cli_refuses_without_a_card(capsys):
         pytest.skip("a CUDA device is visible")
     assert kv.main(["faults"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("fault", kv.GRAPH_FAULTS, ids=[f[0] for f in kv.GRAPH_FAULTS])
+def test_graph_fault_patches_a_name_that_exists(fault):
+    """Each planted graph fault replaces a name ``ops/bilateral.py`` still
+    has, with a value of the same kind."""
+    from vittf_tpu_torch.ops import bilateral
+
+    _, owner, attr, value = fault
+    old, new = getattr(owner(bilateral), attr), value(bilateral)
+    assert callable(old) == callable(new) and new != old

@@ -22,12 +22,17 @@ plain PyTorch twin beside it: ``bls_splat``, ``bls_slice`` and ``bls_blur``
 grouped by spatial lattice cell. Each wrapper launches its kernel for CUDA
 tensors and runs its twin for CPU tensors; ``pixel_impl='scatter'`` runs the
 scatter/gather twins on any device. The TPU lowerings ``'scan'`` and
-``'pallas_interpret'`` are not ported.
+``'pallas_interpret'`` are not ported. On CUDA tensors the kernel forms of
+the solve run as one captured CUDA graph per shape and static arguments,
+the counterpart of the JAX twin's ``jax.jit``.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -64,8 +69,10 @@ def _luma_bins(luma: torch.Tensor, sigma_luma) -> torch.Tensor:
     """int(luma / σ_l) per voxel, truncated toward zero. The divisor is a
     tensor on luma's device: PyTorch divides a CUDA tensor by a Python scalar
     as a multiply by its reciprocal, which can move a knife-edge voxel into
-    the neighbouring bin. The kernels divide too."""
-    sl = torch.tensor(float(sigma_luma), dtype=torch.float32, device=luma.device)
+    the neighbouring bin. The kernels divide too. The divisor is filled on
+    the device, not copied from the host, so that a solve can be captured in
+    a CUDA graph."""
+    sl = torch.full((), float(sigma_luma), dtype=torch.float32, device=luma.device)
     return (luma.float() / sl).to(torch.int64)
 
 
@@ -586,7 +593,7 @@ def _lattice_solve(m, w_splat, b, ext, lam, A_diag_min, cg_tol, cg_maxiter,
     return x
 
 
-def bilateral_solve_gray_batched(
+def _bilateral_solve_eager(
     target: torch.Tensor,  # (B, *spatial) float, 1-3 spatial axes
     luma: torch.Tensor,  # (B, *spatial) float in [0, 255]
     confidence: torch.Tensor,  # (B, *spatial) float
@@ -602,9 +609,9 @@ def bilateral_solve_gray_batched(
     coarse_to_fine: bool = False,
     fine_maxiter: int = 10,
 ) -> torch.Tensor:
-    """``bilateral_solve_gray`` for B independent problems in one pass: every
-    tensor of the solve carries the leading axis, and each kernel launch
-    serves all B. Returns (B, *spatial) fp32."""
+    """``bilateral_solve_gray_batched`` op by op from the host: the route of
+    CPU tensors and of ``'scatter'``, the body every captured graph holds,
+    and the witness the graphs are held against."""
     B, shape = target.shape[0], tuple(target.shape[1:])
     form, blur = _pixel_ops(pixel_impl, len(shape))
     ext = _grid_extents(shape, sigma_spatial, sigma_luma)
@@ -640,6 +647,164 @@ def bilateral_solve_gray_batched(
         yhat = _lattice_solve(m, w_splat, b, ext, cg_maxiter=cg_maxiter, **solve_kw)
     out = slice_(yhat.reshape(B, -1, ext[-1]).contiguous())
     return torch.nan_to_num(out)
+
+
+# ------------------------------------------------------------ solve graphs
+
+# the JAX twin's static_argnames but pixel_impl, which the key holds as its form
+_STATIC_ARGS = ("sigma_spatial", "sigma_luma", "lam", "A_diag_min", "cg_tol", "cg_maxiter",
+                "bistoch_iters", "blur_dim", "coarse_to_fine", "fine_maxiter")
+_WRAPPERS = (bls_splat, bls_slice, bls_blur, bls_reblock, bls_unreblock, bls_splat_blocked,
+             bls_slice_blocked)
+GRAPH_BOUND = 8  # captured solves kept per process, each with its buffers and memory pool
+
+
+def _graph_key(device: torch.device, shape, kw: dict) -> tuple:
+    """What a captured solve is specific to: the device, (B, *spatial), the
+    pixel↔lattice form and every static argument of ``kw`` (the JAX twin's
+    ``jax.jit`` key). 2-D ``'auto'`` and ``'reblock'`` are one form."""
+    form, _ = _pixel_ops(kw["pixel_impl"], len(shape) - 1)
+    return (device.index, tuple(shape), form) + tuple(kw[name] for name in _STATIC_ARGS)
+
+
+def _uncounted(run):
+    """``run()`` → (its result, {wrapper: launches it counted}), the counters
+    set back as they were: a capture records launches and makes none."""
+    before = [fn.launches for fn in _WRAPPERS]
+    try:
+        out = run()
+    finally:
+        counted = {fn: fn.launches - n for fn, n in zip(_WRAPPERS, before) if fn.launches != n}
+        for fn, n in zip(_WRAPPERS, before):
+            fn.launches = n
+    return out, counted
+
+
+@dataclasses.dataclass
+class _SolveGraph:
+    """One captured solve: the graph, the buffers it reads (target, luma,
+    confidence; fp32) and writes, and the launches one replay makes."""
+    graph: object  # torch.cuda.CUDAGraph
+    inputs: tuple
+    output: torch.Tensor
+    launches: dict
+
+    def __call__(self, target, luma, confidence) -> torch.Tensor:
+        """Copy the inputs in, replay, count the replay's launches and
+        return a copy of the output, which the next replay overwrites."""
+        for buf, x in zip(self.inputs, (target, luma, confidence)):
+            buf.copy_(x)
+        self.graph.replay()
+        for fn, n in self.launches.items():
+            fn.launches += n
+        return self.output.clone()
+
+
+class _GraphCache:
+    """Captured solves by key, at most ``bound``; a new key evicts the one
+    used least recently. ``hits`` and ``misses`` count lookups; ``lock``
+    orders callers from several threads."""
+
+    def __init__(self, bound: int):
+        self.bound = bound
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+        self.hits = self.misses = 0
+        self.lock = threading.Lock()
+
+    def get(self, key, make):
+        """The entry of ``key``, made by ``make()`` on a miss."""
+        entry = self.entries.get(key)
+        if entry is not None:
+            self.hits += 1
+            self.entries.move_to_end(key)
+            return entry
+        self.misses += 1
+        while len(self.entries) >= self.bound:
+            self.entries.popitem(last=False)  # frees its graph's memory pool
+        entry = self.entries[key] = make()
+        return entry
+
+    def clear(self) -> None:
+        self.entries.clear()
+
+
+_GRAPHS = _GraphCache(GRAPH_BOUND)
+
+
+def _capture(target, luma, confidence, kw: dict) -> _SolveGraph:
+    """Capture ``_bilateral_solve_eager`` on fp32 copies of the inputs. One
+    eager run on a side stream comes first (it loads the kernel library and
+    sets kernel attributes, which a capture must not do first); its
+    launches are real and count."""
+    device = target.device
+    inputs = tuple(torch.empty(target.shape, dtype=torch.float32, device=device)
+                   for _ in range(3))
+    for buf, x in zip(inputs, (target, luma, confidence)):
+        buf.copy_(x)
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _bilateral_solve_eager(*inputs, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph):
+                return _bilateral_solve_eager(*inputs, **kw)
+
+        output, launches = _uncounted(capture)
+    return _SolveGraph(graph, inputs, output, launches)
+
+
+def _graphed_solve(target, luma, confidence, kw: dict) -> torch.Tensor:
+    """The solve of CUDA tensors in a kernel form: the cached graph of its
+    key, captured on the key's first call, replayed on every call."""
+    if luma.shape != target.shape or confidence.shape != target.shape:
+        raise ValueError("bilateral solve: target, luma and confidence differ in shape")
+    if luma.device != target.device or confidence.device != target.device:
+        raise ValueError("bilateral solve: target, luma and confidence on different devices")
+    key = _graph_key(target.device, target.shape, kw)
+    with _GRAPHS.lock:  # a replay's buffers serve one call at a time
+        entry = _GRAPHS.get(key, lambda: _capture(target, luma, confidence, kw))
+        return entry(target, luma, confidence)
+
+
+def bilateral_solve_gray_batched(
+    target: torch.Tensor,  # (B, *spatial) float, 1-3 spatial axes
+    luma: torch.Tensor,  # (B, *spatial) float in [0, 255]
+    confidence: torch.Tensor,  # (B, *spatial) float
+    sigma_spatial: int = 24,
+    sigma_luma: int = 4,
+    lam: float = 256.0,
+    A_diag_min: float = 1e-5,
+    cg_tol: float = 1e-5,
+    cg_maxiter: int = 25,
+    bistoch_iters: int = 10,
+    blur_dim: int = _BLUR_DIM,
+    pixel_impl: str = "auto",
+    coarse_to_fine: bool = False,
+    fine_maxiter: int = 10,
+) -> torch.Tensor:
+    """``bilateral_solve_gray`` for B independent problems in one pass: every
+    tensor of the solve carries the leading axis, and each kernel launch
+    serves all B. Returns (B, *spatial) fp32.
+
+    On CUDA tensors in a kernel form (``'auto'``, ``'reblock'``) the solve
+    runs as one CUDA graph per key (``_graph_key``: device, shape, form and
+    the static arguments, as the JAX twin's ``jax.jit``): captured on the
+    key's first call, replayed on every call, the same kernels in the same
+    order, so the answer is the eager body's bit for bit. ``GRAPH_BOUND``
+    graphs stay cached, each with its memory. A capture or replay error
+    raises. CPU tensors and ``'scatter'`` run the eager body."""
+    kw = dict(sigma_spatial=sigma_spatial, sigma_luma=sigma_luma, lam=lam,
+              A_diag_min=A_diag_min, cg_tol=cg_tol, cg_maxiter=cg_maxiter,
+              bistoch_iters=bistoch_iters, blur_dim=blur_dim, pixel_impl=pixel_impl,
+              coarse_to_fine=coarse_to_fine, fine_maxiter=fine_maxiter)
+    form, _ = _pixel_ops(pixel_impl, target.ndim - 1)
+    if target.device.type != "cuda" or form == "scatter":
+        return _bilateral_solve_eager(target, luma, confidence, **kw)
+    return _graphed_solve(target, luma, confidence, kw)
 
 
 def bilateral_solve_gray(target, luma, confidence, **kw) -> torch.Tensor:

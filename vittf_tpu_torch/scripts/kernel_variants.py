@@ -8,6 +8,7 @@ body of K3 and K9, K8, K6a and K6b.
     python3 -m vittf_tpu_torch.scripts.kernel_variants similarity-ablation
     python3 -m vittf_tpu_torch.scripts.kernel_variants gemm-ablation
     python3 -m vittf_tpu_torch.scripts.kernel_variants bilateral-ablation
+    python3 -m vittf_tpu_torch.scripts.kernel_variants graph-faults
 
 Run from the repository's root on a machine with one GPU and ``nvcc``: the
 checks are ``chip_smoke.py``'s phases. Each variant copies
@@ -17,11 +18,16 @@ copy and loads the library it builds (the library's name carries the sources'
 hash, so each copy builds its own); the repository's sources are never edited.
 A fault prints ``FAILED <name>: <what the phase raised>`` when the phase
 catches it, which is the wanted outcome, and ``PASSED <name>`` when it does
-not; an ablation prints ``PASSED <name>: <times in ms>``.
+not; an ablation prints ``PASSED <name>: <times in ms>``. ``graph-faults``
+plants its faults in the bilateral solve's CUDA graphs (``ops/bilateral.py``)
+by patching Python names for one run of ``_check_graphs``, with the same
+verdicts.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import shutil
 import sys
 import tempfile
@@ -394,6 +400,74 @@ def _time_similarity(cs, torch):
     return ", ".join(out)
 
 
+def _stale_replay(self, target, luma, confidence):
+    """``_SolveGraph.__call__`` without the copy of the inputs in."""
+    self.graph.replay()
+    return self.output.clone()
+
+
+# (name, owner of the patched name given ops.bilateral, name, its value given
+# ops.bilateral): faults of the solve graphs that ``_check_graphs`` must catch
+GRAPH_FAULTS = [
+    ("graph replayed without copying the inputs in", lambda b: b._SolveGraph, "__call__",
+     lambda b: _stale_replay),
+    ("graph key without cg_tol", lambda b: b, "_STATIC_ARGS",
+     lambda b: tuple(a for a in b._STATIC_ARGS if a != "cg_tol")),
+    ("graph key without the form", lambda b: b, "_graph_key",
+     lambda b: lambda device, shape, kw: (device.index, tuple(shape))
+     + tuple(kw[a] for a in b._STATIC_ARGS)),
+]
+
+
+def _check_graphs(cs, torch):
+    """Four graphed solves of five 48 x 40 x 56 crops, each held against the
+    eager body (``chip_smoke.witness_fresh``): a key's first call, a replay
+    on other inputs, then those inputs at another ``cg_tol`` and in the
+    split form, each its own key."""
+    from vittf_tpu_torch.ops import bilateral
+
+    gen = torch.Generator().manual_seed(0)
+    shape = (cs.BLS_C, 48, 40, 56)
+
+    def planes():
+        lu = torch.randint(0, 256, shape, generator=gen).float()
+        return [x.to("cuda") for x in (torch.rand(shape, generator=gen), lu,
+                                       torch.rand(shape, generator=gen))]
+
+    a, b = planes(), planes()
+    kw = dict(sigma_spatial=cs.BLS_SS, sigma_luma=cs.BLS_SL)
+    held = cs.witness_fresh("graph check", *(
+        functools.partial(bilateral.bilateral_solve_gray_batched, *x, **k)
+        for x, k in ((a, kw), (b, kw), (b, {**kw, "cg_tol": 0.1}),
+                     (b, {**kw, "pixel_impl": "reblock"}))))
+    return f"held {held}"
+
+
+def run_graph_faults(cs, torch) -> list:
+    """The control, then each of ``GRAPH_FAULTS`` patched in for one
+    ``_check_graphs``; returns whether each fault passed."""
+    from unittest import mock
+
+    from vittf_tpu_torch.ops import bilateral
+
+    verdicts = []
+    for name, owner, attr, value in [("control: no patch", None, None, None)] + GRAPH_FAULTS:
+        patch = (mock.patch.object(owner(bilateral), attr, value(bilateral)) if owner
+                 else contextlib.nullcontext())
+        try:
+            with patch:
+                out = _check_graphs(cs, torch)
+            print(f"PASSED {name}: {out}")
+            passed = True
+        except (AssertionError, RuntimeError) as e:
+            print(f"FAILED {name}: {str(e)[:300]}")
+            passed = False
+        if owner:
+            verdicts.append(passed)
+    bilateral._GRAPHS.clear()
+    return verdicts
+
+
 def run_variant(name, edits, check, kernels) -> bool | None:
     """Build ``edits`` into a copy of the sources and run ``check`` with the
     copy's library loaded; prints the verdict, returns whether it passed
@@ -431,7 +505,7 @@ def run_variant(name, edits, check, kernels) -> bool | None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=["faults", "attention-ablation", "similarity-ablation",
-                                     "gemm-ablation", "bilateral-ablation"])
+                                     "gemm-ablation", "bilateral-ablation", "graph-faults"])
     ap.add_argument("--only", default="",
                     help="run the variants whose name starts with one of these (comma-separated)")
     args = ap.parse_args(argv)
@@ -450,6 +524,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(cs.smi_line())
+    if args.what == "graph-faults":
+        verdicts = run_graph_faults(cs, torch)
+        print(f"planted graph faults: {verdicts.count(False)} caught, "
+              f"{verdicts.count(True)} not caught")
+        return 0
     if args.what == "faults":
         # a control (no edit) runs when a selected fault shares its phase
         phases = {phase for name, phase, edits in FAULTS if edits and name.startswith(only)}
