@@ -100,16 +100,31 @@ quality harness and the multi-device layer. Phases:
    extraction with loud weights, kernels vs the plain twin;
 8. refinement path: ``predict_ntf --bilateral-solver --largest-island`` on
    the same volume and features, then three requests with
-   ``bilateral_solver=True, bls_shape_bucket=8``, twice (the first round
-   captures each request's solve graph, the second replays it); the splat,
-   slice and blur counters must have risen in both, the last request's maps
-   agree with the plain twins' (|Δ| ≤ 1 on ≤ 1e-3 of the voxels) and equal
-   their own repeat bit for bit; the graph cache's hits and misses; then,
-   the cache dropped, a request's graphed solve ``torch.equal`` to the eager
-   body on its first call and on replay (``witness_fresh``);
+   ``bilateral_solver=True, bls_shape_bucket=8`` given the reference as the
+   served session keeps it, twice (a key's first request runs its refine
+   core eager, its second captures it, later ones and the second round
+   replay), then once more without the reference (each request uploads and
+   resizes the volume); the splat, slice and blur counters must have risen,
+   the last request's maps agree with the plain twins' (|Δ| ≤ 1 on ≤ 1e-3
+   of the voxels) and equal their own repeat, second round and run without
+   the reference bit for bit; what the graph cache did per request; then,
+   the cache dropped, six requests held against the slice-based core with
+   the eager solve, ``torch.equal``: an eager first sighting, a capture and
+   replays at other starts (``witness_fresh``);
+8a. refine core witness (``phase_core_witness``): the core of five classes
+   of a (96, 80, 64) grid at two crop shapes, four calls each with starts at
+   the low faces, the high faces, mixed and inside, each held as in phase 8;
+8b. capture parts (``phase_capture_parts``): a capture's eager warm-up,
+   ``torch.cuda.graph``'s entry, capture, instantiation and first replays
+   timed apart for solves at 5 × 128³, the whole grid's chunk 4 × 256³ and
+   a 2-D 2048², and for a request's refine core (5 × 64³, crop 48³), and
+   the same capture without the entry and on a fresh stream, each replay
+   ``torch.equal`` to the eager body;
 9. whole-grid refinement of five classes on a 256³ sim grid, kernels vs
-   plain (same contract, wall times of both), memory reserved before and
-   after, and a whole-grid chunk's graph held as in phase 8;
+   plain (same contract, wall times of both; the first call's two chunks
+   are an eager sighting and a capture, the second call's two replays),
+   memory reserved before and after, and a whole-grid chunk's graph held as
+   in phase 8;
 10. ``infer --fast`` on a 256³ phantom;
 11. a 64³ extraction through the kernels vs the plain twins;
 12. blocked path: the whole-grid refinement of five classes at 128³ with
@@ -119,13 +134,19 @@ quality harness and the multi-device layer. Phases:
     splat's and slice's must not), timed as a graph replay beside the eager
     body and the fused kernels called directly on the image as one z-plane;
     the 128³ ``'reblock'`` and ``'auto'`` refinements and each 2-D solve
-    held as in phase 8, first call and replay;
+    held as in phase 8, eager sighting, capture and replay;
 13. coarse-to-fine: phase 9's refinement with ``bs_params={'coarse_to_fine':
     True}`` and with ``fine_maxiter=25`` beside the direct one (wall, peak
     memory, maps' deviation from the direct ones, memory reserved), its
     graph held as in phase 8, and one class on a 512³ grid, direct and
     coarse-to-fine; one class's float solves are held to mean |delta| <=
-    2e-3 and equal > 0.5 masks on >= 0.999;
+    2e-3 and equal > 0.5 masks on >= 0.999; the 256³ fast extraction's peak
+    memory is printed in phase 10;
+13b. graph memory (``phase_graph_memory``): ten distinct large keys in a
+    row (one class on 512³ at five ``cg_maxiter``, five classes on 256³ at
+    five ``lam``), after each the graph cache's entries and bytes against
+    its budget, memory reserved and the card's free memory; the bytes must
+    stay within the budget and the count within ``GRAPH_BOUND``;
 14. served path: ``serve --max-updates 4`` on a 128³ artifact directory,
     without and with ``--bilateral-solver``, while a thread writes
     ``annotations.npy`` four times (five classes; one class edited; a class
@@ -134,8 +155,8 @@ quality harness and the multi-device layer. Phases:
     repeat, bit-equal to the kernel's similarities through the plain twins'
     solve with a deterministic ``index_add_``, those similarities within
     phase 3's contract of the twin's, and within ±1 of the plain route made
-    so); the first refined edit's graphed solve equals the eager body; the
-    graph cache's hits and misses, and which edits captured a graph;
+    so); the start-up warm-up's and the first refined edit's refine cores
+    equal their witness; what the graph cache did per edit;
 14a. tools path: the similarity kernel with no threshold on scores of either
     sign vs plain; ``compare_sampling_strategies`` at 64³ x 384 (5 similarity
     launches, maps vs the plain route within the uint8 contract);
@@ -165,14 +186,16 @@ quality harness and the multi-device layer. Phases:
     results held at 1e-5 (an error in either rank fails the phase);
 15. with ``--profile`` only: torch.profiler traces of a warm 128³
     extraction (per-op blocks and fused blocks), of three requests, of
-    three refined requests (their solve graphs captured beforehand) and of
+    three refined requests (their refine cores captured beforehand) and of
     one PAWS and one dense trainer step at 128³ (device busy time, idle
-    share, top kernels).
+    share, top kernels), and the three refined requests once more with
+    Python stacks: every pageable host-to-device copy with its source.
 
-On CUDA tensors every bilateral solve in a kernel form runs as a CUDA
-graph replay (``ops/bilateral.py``, ``bilateral_solve_gray_batched``); the
-launch counters count the kernels a replay runs, and a key's first call
-counts its eager warm-up too.
+On CUDA tensors every bilateral solve in a kernel form and every refine
+core of ``refine_similarities_batched`` go through the graph cache
+(``utils/cuda_graphs.py``): a key's first call runs eager, its second
+captures and replays, later calls replay. The launch counters count the
+kernels an eager call or a replay runs; a capture launches none.
 With ``--ptxas`` phase 1 also prints every kernel's registers, shared memory,
 spills and performance warnings.
 
@@ -218,7 +241,6 @@ from vittf_tpu_torch.pipeline.annotations import sample_uniform
 from vittf_tpu_torch.pipeline.baselines import compose_features, sample_train_data, svm_predict_device
 from vittf_tpu_torch.pipeline.compare_sampling import compare_sampling_strategies, normalize_features
 from vittf_tpu_torch.ops.attention import attention, attention_plain, multi_head_attention
-from vittf_tpu_torch.ops import bilateral as bilateral_module
 from vittf_tpu_torch.ops.bilateral import (
     _bilateral_solve_eager,
     _blocked_pixel_view,
@@ -297,6 +319,7 @@ from vittf_tpu_torch.pipeline.refine import make_bls_reference, refine_similarit
 from vittf_tpu_torch.scripts import bench_int8_gemm
 from vittf_tpu_torch.utils.cuda_timing import copy_floor, ten_call_ms
 from vittf_tpu_torch.utils.cuda_timing import one_call_ms as cuda_ms
+from vittf_tpu_torch.utils import cuda_graphs
 from vittf_tpu_torch.utils.tensor import ieee_matmul
 
 ATTN_SHAPE = (8, 6, 4097, 64)  # vits8 at fos 64: 8 slices, 6 heads, 64²+1 tokens
@@ -306,7 +329,7 @@ SIM_N, SIM_F, SIM_PER_CLASS, SIM_C = 64**3, 384, 256, 5
 BLS_SS, BLS_SL, BLS_C = 7, 5, 5  # the refinement's grid (pipeline/refine.py) and 5 classes
 BLS_KERNELS = (bls_splat, bls_slice, bls_blur)
 BLOCKED_KERNELS = (bls_reblock, bls_unreblock, bls_splat_blocked, bls_slice_blocked)
-GRAPHS = bilateral_module._GRAPHS  # the captured solves: hits, misses, entries
+GRAPHS = cuda_graphs.GRAPHS  # captured solves and refine cores: hits, misses, eager, entries
 BLS2D_SS, BLS2D_SL = 24, 4  # the 2-D solver's default grid
 # published peaks of one H100 SXM at its full power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1263,73 +1286,254 @@ def loud_extraction(seed):
           f"(limit {0.02 * want.abs().max().item()})")
 
 
+def host_ms(fn):
+    """(``fn()``, ms on the host clock between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def capture_parts(label, args, body_fn):
+    """The parts of one capture of ``body_fn(*args)`` on the host clock,
+    each between two synchronizes: the eager body on the current stream and
+    on a side stream (the warm-up of a capture on a key's first call),
+    ``torch.cuda.graph``'s entry (synchronize, ``empty_cache``,
+    ``_host_emptyCache``), the capture, ``capture_end``
+    (instantiation), the first and a second replay, the eager body right
+    after the entry emptied the caches and once more warm; then the same
+    capture with ``capture_begin`` on the side stream and no entry, and on
+    a fresh stream that never ran the body. Each replay is held
+    ``torch.equal`` to the eager body."""
+    inputs = tuple(a.contiguous() for a in args)
+    cur, side = torch.cuda.current_stream(), torch.cuda.Stream()
+
+    def body():
+        return body_fn(*inputs)
+
+    def on(stream, fn):
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            out = host_ms(fn)
+        cur.wait_stream(stream)
+        return out
+
+    def capture(stream):
+        graph = torch.cuda.CUDAGraph()
+        reserved = torch.cuda.memory_reserved()
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.capture_begin()
+            out = body()
+            t1 = time.perf_counter()
+            graph.capture_end()
+            t2 = time.perf_counter()
+        cur.wait_stream(stream)
+        return graph, out, (t1 - t0) * 1e3, (t2 - t1) * 1e3, torch.cuda.memory_reserved() - reserved
+
+    want, ms_cur = host_ms(body)
+    _, ms_side = on(side, body)
+    _, ms_entry = host_ms(lambda: (torch.cuda.synchronize(), torch.cuda.empty_cache(),
+                                   torch._C._host_emptyCache()))
+    parts = {"eager current stream": ms_cur, "eager side stream": ms_side,
+             "graph entry": ms_entry}
+    graph, out, parts["capture"], parts["capture_end"], pool = capture(side)
+    _, parts["first replay"] = host_ms(graph.replay)
+    assert_equal(f"{label}: replay after the entry", out, want)
+    _, parts["second replay"] = host_ms(graph.replay)
+    _, parts["eager after the entry"] = host_ms(body)
+    _, parts["eager warm"] = host_ms(body)
+    del graph, out
+    graph, out, parts["capture, no entry"], parts["capture_end, no entry"], pool2 = capture(side)
+    _, parts["first replay, no entry"] = host_ms(graph.replay)
+    assert_equal(f"{label}: replay, capture without the entry", out, want)
+    del graph, out
+    try:
+        graph, out, *_ = capture(torch.cuda.Stream())
+        graph.replay()
+        assert_equal(f"{label}: replay, capture on a fresh stream", out, want)
+        fresh = "captured and equal"
+        del graph, out
+    except RuntimeError as e:
+        fresh = f"failed: {str(e)[:200]}"
+    print(f"capture parts {label}: " + ", ".join(f"{k} {v} ms" for k, v in parts.items())
+          + f"; pool {pool / 2**30} GiB (no entry: {pool2 / 2**30} GiB); capture on a fresh "
+          f"stream {fresh}")
+    return parts
+
+
+def phase_capture_parts(seed):
+    """``capture_parts`` for three solve keys: five classes of a 128³ crop
+    (``'auto'``), the whole 256³ grid's chunk of four classes, and a 2-D
+    2048² solve (σ_s 24, σ_l 4, blur dim 5); then for the refine core of
+    five classes of a 64³ grid (a refined request's) at a 48³ crop."""
+    solve = functools.partial(_bilateral_solve_eager, sigma_spatial=BLS_SS, sigma_luma=BLS_SL)
+    for size, C in ((128, BLS_C), (256, 4)):
+        ref, sims = whole_grid_case(size, seed + size, C)
+        lu = ref.float()[None].expand(sims.shape)
+        conf = 0.4 + 0.5 * torch.rand(sims.shape, device="cuda",
+                                      generator=torch.Generator(device="cuda").manual_seed(seed))
+        capture_parts(f"({C}, {size}^3) 'auto'", (sims, lu, conf), solve)
+        del ref, sims, lu, conf
+    r, t = phantom2d(2048, seed + 2048)
+    capture_parts("2-D 2048^2", (t[None], r[None], torch.full_like(t, 0.999)[None]),
+                  functools.partial(_bilateral_solve_eager, sigma_spatial=BLS2D_SS,
+                                    sigma_luma=BLS2D_SL, blur_dim=5))
+    ref, sims = whole_grid_case(64, seed + 64, BLS_C)
+    starts = torch.tensor([[0, 8, 16], [16, 0, 8], [8, 16, 0], [16, 16, 16], [0, 0, 0]],
+                          device="cuda")
+    solve_kw = dict(sigma_spatial=BLS_SS, sigma_luma=BLS_SL, lam=256.0, cg_maxiter=25,
+                    coarse_to_fine=False, fine_maxiter=10, pixel_impl="auto")
+    capture_parts(f"refine core ({BLS_C}, 64^3) crop 48^3", (sims, ref, starts), functools.partial(
+        refine_module._refine_indexed_core, crop_shape=(48, 48, 48), solve_kw=solve_kw))
+
+
+def copy_sources(prof, label):
+    """Print every pageable host-to-device copy of a trace taken with
+    ``with_stack=True`` and ``record_shapes=True``: count, card time, the op
+    that made it with its input shapes, and the repository's frames around
+    it (the trace's Python function events on the op's thread whose span
+    holds the op, innermost first)."""
+    events = list(prof.events())
+    frames = [f for f in events if ".py(" in f.name
+              and ("vittf_tpu_torch" in f.name or "chip_smoke" in f.name)]
+    rows = {}
+    for e in events:
+        for k in getattr(e, "kernels", []):
+            if "HtoD" not in k.name or "Pageable" not in k.name:
+                continue
+            around = sorted((f for f in frames if f.thread == e.thread
+                             and f.time_range.start <= e.time_range.start
+                             and e.time_range.end <= f.time_range.end),
+                            key=lambda f: -f.time_range.start)
+            key = (e.name, str(e.input_shapes), tuple(f.name for f in around[:3]))
+            n, us = rows.get(key, (0, 0.0))
+            rows[key] = (n + 1, us + k.duration)
+    print(f"pageable host-to-device copies, {label}: {sum(n for n, _ in rows.values())} "
+          f"({len(frames)} Python frames of the repository in the trace)")
+    for (name, shapes, stack), (n, us) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {n} x, {us / 1e3} ms, {name} {shapes} at {' <- '.join(stack)}")
+
+
+def graph_counts() -> tuple[int, int, int]:
+    """The graph cache's (hits, misses, eager): replays of a kept graph,
+    captures, first sightings run eager."""
+    return GRAPHS.hits, GRAPHS.misses, GRAPHS.eager
+
+
+def graph_kinds(before: tuple[int, int, int]) -> str:
+    """What the cache did since ``before``, e.g. 'eager' or '1 capture'."""
+    names = ("replay", "capture", "eager")
+    parts = [f"{n} {name}" for n, name in zip((a - b for a, b in zip(graph_counts(), before)),
+                                               names) if n]
+    return ", ".join(parts) or "no graph call"
+
+
+def graph_witness_of(key, args, body):
+    """The witness of one call through the graph cache: a solve's eager body,
+    or for a refine core the slice-based ``_refine_batched_core`` at the
+    host starts, its solve the eager body."""
+    if key[0] != "refine core":
+        return body(*args)
+    sims, vol_u8, starts = args
+    with mock.patch.object(refine_module, "bilateral_solve_gray_batched", _bilateral_solve_eager):
+        return refine_module._refine_batched_core(sims, vol_u8, starts.cpu().numpy(),
+                                                  body.keywords["crop_shape"],
+                                                  body.keywords["solve_kw"])
+
+
+@contextlib.contextmanager
+def timed_captures():
+    """Time every capture made inside the block (``cuda_graphs.capture``:
+    the input copies, capture and instantiation, without the replay), on
+    the host clock between two synchronizes; yields the list of ms."""
+    real, times = cuda_graphs.capture, []
+
+    def timed(*args):
+        out, ms = host_ms(lambda: real(*args))
+        times.append(ms)
+        return out
+
+    with mock.patch.object(cuda_graphs, "capture", timed):
+        yield times
+
+
 @contextlib.contextmanager
 def graph_witness(label, calls=None):
-    """Hold the graphed bilateral solves made inside the block (the first
-    ``calls`` of them, or all) against the eager body on the same inputs,
-    ``torch.equal``: a key's first call (warm-up, capture, replay) and its
-    replays alike. The eager run's launches are not counted. Yields
-    {'first': n, 'replay': n}, the solves held."""
-    real = bilateral_module._graphed_solve
-    held = {"first": 0, "replay": 0}
-    counted = bilateral_module._WRAPPERS
+    """Hold the calls through the graph cache made inside the block (the
+    first ``calls`` of them, or all) against their witness on the same
+    inputs (``graph_witness_of``), ``torch.equal``: a key's eager first
+    sighting, its capture (capture, then replay) and its replays alike. The
+    witness's launches are not counted. Yields {'eager': n, 'capture': n,
+    'replay': n}, the calls held."""
+    real = cuda_graphs.graphed
+    held = {"eager": 0, "capture": 0, "replay": 0}
 
-    def checked(target, luma, confidence, kw):
+    def checked(key, args, body, wrappers, cache=GRAPHS):
         if calls is not None and sum(held.values()) >= calls:
-            return real(target, luma, confidence, kw)
-        misses = GRAPHS.misses
-        got = real(target, luma, confidence, kw)
-        kind = "first" if GRAPHS.misses > misses else "replay"
-        before = [fn.launches for fn in counted]
-        want = _bilateral_solve_eager(target, luma, confidence, **kw)
-        for fn, n in zip(counted, before):
-            fn.launches = n
-        assert_equal(f"{label}: graphed solve ({kind} call) vs the eager body", got, want)
+            return real(key, args, body, wrappers, cache)
+        before = (cache.misses, cache.eager)
+        got = real(key, args, body, wrappers, cache)
+        kind = ("eager" if cache.eager > before[1] else
+                "capture" if cache.misses > before[0] else "replay")
+        want, _ = cuda_graphs.uncounted(lambda: graph_witness_of(key, args, body), wrappers)
+        what = "refine core" if key[0] == "refine core" else "solve"
+        assert_equal(f"{label}: graphed {what} ({kind}) vs its witness", got, want)
         held[kind] += 1
         return got
 
-    with mock.patch.object(bilateral_module, "_graphed_solve", checked):
+    with mock.patch.object(cuda_graphs, "graphed", checked):
         yield held
 
 
 def witness_fresh(label, *runs) -> dict:
-    """Drop every captured solve, then call each of ``runs`` under
-    ``graph_witness``; a first call and a replay must both be held. The
-    runs give one key other inputs, so a replay that read stale buffers
-    would differ from the eager body."""
+    """Drop every captured graph and sighting, then call each of ``runs``
+    under ``graph_witness``; an eager first sighting, a capture and a
+    replay must all be held. The runs give one key other inputs, so a
+    replay that read stale buffers would differ from the witness."""
     GRAPHS.clear()
     with graph_witness(label) as held:
         for run in runs:
             run()
-    if not held["first"] or not held["replay"]:
-        raise AssertionError(f"{label}: graphed solves held {held}, need a first call and a replay")
-    print(f"{label}: every graphed solve equals the eager body bit for bit ({held['first']} "
-          f"first calls, {held['replay']} replays)")
+    if not all(held.values()):
+        raise AssertionError(f"{label}: graph calls held {held}, need an eager first sighting, "
+                             "a capture and a replay")
+    print(f"{label}: every graphed answer equals its witness bit for bit ({held})")
     return held
 
 
-def graph_line(since: tuple[int, int]) -> str:
-    """The graph cache's hits and misses since ``since`` (``(hits,
-    misses)``), the entries it keeps and the card's reserved memory."""
-    hits, misses = GRAPHS.hits - since[0], GRAPHS.misses - since[1]
-    return (f"graph cache {hits} hits, {misses} misses (hit rate {hits / max(hits + misses, 1)}), "
-            f"{len(GRAPHS.entries)} kept; memory reserved {torch.cuda.memory_reserved() / 2**30} "
-            f"GiB, allocated {torch.cuda.memory_allocated() / 2**30} GiB")
+def graph_line(since: tuple[int, int, int]) -> str:
+    """The graph cache's hits (replays), misses (captures) and eager first
+    sightings since ``since`` (``graph_counts()``), the entries it keeps,
+    their bytes against the budget, and the card's reserved memory."""
+    hits, misses, eager = (a - b for a, b in zip(graph_counts(), since))
+    calls = max(hits + misses + eager, 1)
+    budget = GRAPHS.budget_bytes(torch.device("cuda", 0))
+    return (f"graph cache {hits} replays, {misses} captures, {eager} eager first sightings "
+            f"(replay share {hits / calls}), {len(GRAPHS.entries)} kept holding "
+            f"{GRAPHS.nbytes / 2**30} GiB of a {budget / 2**30} GiB budget; memory reserved "
+            f"{torch.cuda.memory_reserved() / 2**30} GiB, allocated "
+            f"{torch.cuda.memory_allocated() / 2**30} GiB")
 
 
-def bls_requests(vol, feat_t, anns, impl="auto"):
-    """Refined interactive requests; returns each one's maps, label volume,
-    wall seconds and whether it captured a graph (a key's first call)."""
+def bls_requests(vol, feat_t, anns, impl="auto", ref=None):
+    """Refined interactive requests, given the reference ``ref`` as the
+    served session keeps it (None: each request builds it from ``vol``);
+    returns each one's maps, label volume, wall seconds and what the graph
+    cache did (``graph_kinds``)."""
     out = []
     for ann in anns:
-        misses = GRAPHS.misses
+        before = graph_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sims = compute_similarities(vol, feat_t, ann, bilateral_solver=True, bls_shape_bucket=8,
-                                    impl=impl)
+                                    bls_ref_u8=ref, impl=impl)
         pred = fuse_predictions(sims)
         torch.cuda.synchronize()
-        out.append((sims, pred, time.perf_counter() - t0, GRAPHS.misses > misses))
+        out.append((sims, pred, time.perf_counter() - t0, graph_kinds(before)))
     return out
 
 
@@ -1338,14 +1542,14 @@ def phase_refinement(seed, workdir: Path, vol, labels, feat_t):
     island filter, then refined requests with bucketed batched crops."""
     for fn in BLS_KERNELS:
         fn.launches = 0
-    since = (GRAPHS.hits, GRAPHS.misses)
+    since = graph_counts()
     t0 = time.perf_counter()
     predict_ntf.main(["--data", str(workdir), "--num-samples", "256", "--seed", str(seed),
                       "--bilateral-solver", "--largest-island"])
     t_cli = time.perf_counter() - t0
     n_cli = [fn.launches for fn in BLS_KERNELS]
     print(f"refinement path, predict CLI: {graph_line(since)}")
-    since = (GRAPHS.hits, GRAPHS.misses)
+    since = graph_counts()
     pred = np.load(workdir / "ntf_pred256.0bothblsisl.npy")
     if pred.shape != (64, 64, 64) or pred.dtype != np.uint8 or pred.max() > 5 or not pred.any():
         raise AssertionError(f"refined prediction {pred.shape} {pred.dtype} max {pred.max()}")
@@ -1356,37 +1560,49 @@ def phase_refinement(seed, workdir: Path, vol, labels, feat_t):
     labels_f = np.flip(labels, axis=-3).copy()
     anns = [annotations_from_labels(labels_f, 256, "both", rng=np.random.default_rng(seed + r),
                                     device="cuda") for r in range(1, 4)]
-    # each request's key is captured on its first call; the second round replays
-    reqs = bls_requests(vol, feat_t, anns)
-    replays = bls_requests(vol, feat_t, anns)
+    # the reference as the served session keeps it; a key's first request runs
+    # eager, its second captures, the later ones and the second round replay
+    ref = make_bls_reference(vol, tuple(s // 2 for s in vol.shape), device="cuda")
+    with timed_captures() as caps:
+        reqs = bls_requests(vol, feat_t, anns, ref=ref)
+        replays = bls_requests(vol, feat_t, anns, ref=ref)
     n_all = [fn.launches for fn in BLS_KERNELS]
+    # the same requests again, each building the reference from the volume
+    noref = bls_requests(vol, feat_t, anns)
     n_req = [a - b for a, b in zip(n_all, n_cli)]
     sims, pred_r, *_ = reqs[-1]
     plain = compute_similarities(vol, feat_t, anns[-1], bilateral_solver=True,
                                  bls_shape_bucket=8, impl="plain")
     n_diff = sum(check_u8_maps(f"refined request map {k}", sims[k], plain[k]) for k in sims)
     # no kernel of the route sums with atomics: a refined request equals its repeat
-    again = bls_requests(vol, feat_t, anns[-1:])[0][0]
+    again = bls_requests(vol, feat_t, anns[-1:], ref=ref)[0][0]
     for k in sims:
         assert_equal(f"refined request map {k}: repeat", again[k], sims[k])
         assert_equal(f"refined request map {k}: second round", replays[-1][0][k], sims[k])
+        assert_equal(f"refined request map {k}: reference from the volume", noref[-1][0][k],
+                     sims[k])
     if tuple(pred_r.shape) != (64, 64, 64):
         raise AssertionError(f"refined request prediction shape {tuple(pred_r.shape)}")
     req_ms = [r[2] * 1e3 for r in reqs]
     replay_ms = [r[2] * 1e3 for r in replays]
+    noref_ms = [r[2] * 1e3 for r in noref]
     print(f"refinement path: predict CLI --bilateral-solver --largest-island {t_cli} s, "
-          f"mIoU {metrics['mIoU']}; refined request p50 {float(np.median(req_ms))} ms "
-          f"(each {req_ms} ms, captured a graph {[r[3] for r in reqs]}); second round p50 "
-          f"{float(np.median(replay_ms))} ms (each {replay_ms} ms, captured "
-          f"{[r[3] for r in replays]}); last request vs plain: {n_diff} voxels differ by 1; "
-          f"its repeat and second round are bit-equal")
+          f"mIoU {metrics['mIoU']}; refined request (given the reference) p50 "
+          f"{float(np.median(req_ms))} ms (each {req_ms} ms, graph cache "
+          f"{[r[3] for r in reqs]}, the captures alone {caps} ms); second round p50 "
+          f"{float(np.median(replay_ms))} ms (each {replay_ms} ms, {[r[3] for r in replays]}); "
+          f"without the reference (each request "
+          f"uploads and resizes the volume) p50 {float(np.median(noref_ms))} ms (each "
+          f"{noref_ms} ms, {[r[3] for r in noref]}); last request vs plain: {n_diff} voxels "
+          f"differ by 1; its repeat, its second round and its run without the reference are "
+          f"bit-equal")
     print(f"refinement path, requests: {graph_line(since)}")
     print(f"launches (splat, slice, blur): CLI {n_cli}, requests {n_req}")
     if min(n_cli) == 0 or min(n_req) == 0:
         raise AssertionError(f"a bilateral kernel was not launched: CLI {n_cli}, requests {n_req}")
-    # a capture, then replays on the other draws where they crop to its bucketed
-    # shape (all three do here), and on the first draw again
-    witness_fresh("refined request", lambda: bls_requests(vol, feat_t, anns + anns[:1]))
+    # an eager first sighting, a capture, then replays on the other draws where
+    # they crop to its bucketed shape (all three do here), with other starts
+    witness_fresh("refined request", lambda: bls_requests(vol, feat_t, anns * 2, ref=ref))
     return n_all
 
 
@@ -1403,23 +1619,97 @@ def phase_whole_grid(seed):
     cls = torch.arange(1, C + 1, device="cuda").reshape(C, 1, 1, 1)
     sims = 0.15 + 0.6 * (lab[None] == cls).float()
     sims += 0.1 * torch.rand((C,) + shape, generator=gen, device="cuda")
-    runs = {"scatter": [], "auto": []}
+    runs, kinds = {"scatter": [], "auto": []}, []
     outs = {}
-    since = (GRAPHS.hits, GRAPHS.misses)
+    since = graph_counts()
     reserved = torch.cuda.memory_reserved() / 2**30
-    for impl in ("scatter", "auto", "auto", "scatter"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs[impl] = refine_similarities_batched(sims, None, shape, ref_u8=ref, pixel_impl=impl)
-        torch.cuda.synchronize()
-        runs[impl].append(time.perf_counter() - t0)
+    with timed_captures() as caps:
+        for impl in ("scatter", "auto", "auto", "scatter"):
+            before = graph_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[impl] = refine_similarities_batched(sims, None, shape, ref_u8=ref,
+                                                     pixel_impl=impl)
+            torch.cuda.synchronize()
+            runs[impl].append(time.perf_counter() - t0)
+            kinds += [graph_kinds(before)] if impl == "auto" else []
     n_diff = check_u8_maps("whole-grid refinement", outs["auto"], outs["scatter"])
-    print(f"whole-grid refinement {shape} C={C}: kernels {runs['auto']} s (the first captures "
-          f"the chunks' graph), plain {runs['scatter']} s; {n_diff} of {outs['auto'].numel()} "
-          f"voxels differ by 1; memory reserved before {reserved} GiB; {graph_line(since)}")
-    # two chunks of four classes: a capture and a replay on other classes
-    witness_fresh("whole-grid chunk", lambda: refine_similarities_batched(
-        sims, None, shape, ref_u8=ref))
+    print(f"whole-grid refinement {shape} C={C}: kernels {runs['auto']} s (graph cache {kinds}: "
+          f"two chunks of one key; the capture alone {caps} ms), plain {runs['scatter']} s; "
+          f"{n_diff} of {outs['auto'].numel()} voxels differ by 1; memory reserved before "
+          f"{reserved} GiB; "
+          f"{graph_line(since)}")
+    # two chunks of four classes a call: an eager sighting and a capture, then
+    # replays on other classes
+    witness_fresh("whole-grid chunk", *(lambda: refine_similarities_batched(
+        sims, None, shape, ref_u8=ref),) * 2)
+
+
+CORE_STARTS = (  # five classes' (x, y, z) starts, as shares of the room left by the crop
+    ((0, 0, 0),) * 5,
+    ((1, 1, 1),) * 5,
+    ((0, 1, 1), (1, 0, 0), (1, 1, 0), (0.3, 0.6, 0.1), (0, 0, 1)),
+    ((0.5, 0.2, 0.9), (0.1, 0.8, 0.4), (1, 0.5, 0), (0, 1, 0.5), (0.7, 0.3, 1)),
+)
+
+
+def phase_core_witness(seed, sim_shape=(96, 80, 64), crops=((48, 40, 32), (40, 48, 24))):
+    """The refine core through the graph cache (``pipeline/refine.py::
+    _refine_core``) on five classes of a ``sim_shape`` grid, for each crop
+    shape four calls with other starts: at the low faces, at the high
+    faces, mixed, and inside (an eager sighting, a capture, two replays),
+    each held ``torch.equal`` to the slice-based ``_refine_batched_core``
+    with the eager solve (``witness_fresh``)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sims = torch.rand((BLS_C,) + sim_shape, generator=gen, device="cuda")
+    vol_u8 = torch.randint(0, 256, sim_shape, generator=gen, device="cuda", dtype=torch.uint8)
+    solve_kw = dict(sigma_spatial=BLS_SS, sigma_luma=BLS_SL, lam=256.0, cg_maxiter=25,
+                    coarse_to_fine=False, fine_maxiter=10, pixel_impl="auto")
+    runs = []
+    for crop in crops:
+        room = np.asarray(sim_shape) - np.asarray(crop)
+        for shares in CORE_STARTS:
+            starts = torch.from_numpy(np.rint(np.asarray(shares) * room).astype(np.int64))
+            runs.append(functools.partial(refine_module._refine_core, sims, vol_u8,
+                                          starts.to("cuda"), crop, solve_kw))
+    return witness_fresh(f"refine core {sim_shape} crops {crops}", *runs)
+
+
+def phase_graph_memory(seed):
+    """More than ``GRAPH_BOUND`` distinct large keys in a row: one class on
+    a 512³ grid at five ``cg_maxiter`` (two calls each: the second
+    captures), then five classes on a 256³ grid at five ``lam`` (a call's
+    second chunk captures). After each key: the cache's entries and bytes
+    against its budget, memory reserved and the card's free memory; the
+    bytes must stay within the budget and the count within the bound."""
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+    budget = GRAPHS.budget_bytes(torch.device("cuda", 0))
+    since = graph_counts()
+    cases = [(512, 1, {"cg_maxiter": n}) for n in (25, 24, 23, 22, 21)]
+    cases += [(256, BLS_C, {"lam": lam}) for lam in (256.0, 128.0, 64.0, 32.0, 16.0)]
+    grids = {}
+    for size, C, bs in cases:
+        if size not in grids:
+            grids = {size: whole_grid_case(size, seed + size, C)}  # one grid at a time
+        ref, sims = grids[size]
+        secs = [timed_refine(sims, (size,) * 3, ref, bs_params=bs)[1]
+                for _ in range(2 if C == 1 else 1)]
+        free, total = torch.cuda.mem_get_info()
+        print(f"graph memory {size}^3 x {C} {bs}: {secs} s; {len(GRAPHS.entries)} kept, "
+              f"{GRAPHS.nbytes / 2**30} GiB of the {budget / 2**30} GiB budget (entries "
+              f"{[e.nbytes / 2**30 for e in GRAPHS.entries.values()]} GiB); memory reserved "
+              f"{torch.cuda.memory_reserved() / 2**30} GiB, allocated "
+              f"{torch.cuda.memory_allocated() / 2**30} GiB; card free {free / 2**30} of "
+              f"{total / 2**30} GiB")
+        if GRAPHS.nbytes > budget or len(GRAPHS.entries) > cuda_graphs.GRAPH_BOUND:
+            raise AssertionError(f"graph cache holds {GRAPHS.nbytes} bytes in "
+                                 f"{len(GRAPHS.entries)} entries, budget {budget}")
+    print(f"graph memory: {graph_line(since)}")
+    # the step filled the cache on purpose: leave it empty for the phases after it
+    del grids
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
 
 
 def whole_grid_case(size, seed, C):
@@ -1495,8 +1785,8 @@ def phase_blocked_path(seed, size=128, sizes_2d=(2048, 512)):
     (K6 + K7) against ``'auto'`` (K4/K5) and ``'scatter'``. Then the 2-D
     solver, which takes the blocked kernels with one row per cell. Returns
     the blocked kernels' launches in the path's own runs: the witness and the
-    first two ``apply_bilateral_solver2d`` calls of each size (a capture and
-    a replay)."""
+    first three ``apply_bilateral_solver2d`` calls of each size (an eager
+    first sighting, a capture and a replay)."""
     for fn in BLS_KERNELS + BLOCKED_KERNELS:
         fn.launches = 0
     shape = (size,) * 3
@@ -1507,36 +1797,39 @@ def phase_blocked_path(seed, size=128, sizes_2d=(2048, 512)):
         outs[impl], dt, _ = timed_refine(sims, shape, ref, pixel_impl=impl)
         secs.setdefault(impl, []).append(dt)
         captured += GRAPHS.misses - misses if impl == "reblock" else 0
+    # each run is one chunk: the first 'reblock' run eager, the second a capture and its replay
     n_auto = check_u8_maps("reblock vs auto", outs["reblock"], outs["auto"])
     n_scatter = check_u8_maps("reblock vs scatter", outs["reblock"], outs["scatter"])
     n_witness = [fn.launches for fn in BLOCKED_KERNELS]
     print(f"witness {shape} C={BLS_C}: reblock {secs['reblock']} s, auto {secs['auto']} s, "
-          f"scatter {secs['scatter']} s (the first 'reblock' and 'auto' runs capture); reblock "
+          f"scatter {secs['scatter']} s (the first 'reblock' and 'auto' runs eager, the second "
+          f"captures); reblock "
           f"vs auto {n_auto}, vs scatter {n_scatter} of {outs['auto'].numel()} voxels differ by "
           f"1; launches (reblock, unreblock, blocked splat, blocked slice) {n_witness}")
-    # one solve a run (one chunk); the capturing call runs it twice (warm-up, replay)
-    solves = 2 + captured
-    if n_witness != [3 * solves, solves, solves, solves] or captured > 1:
+    # one solve a run (one chunk): eager, or a capture and its one replay
+    solves = 2
+    if n_witness != [3 * solves, solves, solves, solves] or captured != 1:
         raise AssertionError(f"witness launches {n_witness} with {captured} captures")
-    for impl in ("reblock", "auto"):  # the classes in reverse order replay the key
+    for impl in ("reblock", "auto"):  # the classes in other orders: a capture, then a replay
         witness_fresh(f"{impl} whole-grid 128^3", *(
             functools.partial(refine_similarities_batched, x, None, shape, ref_u8=ref,
-                              pixel_impl=impl) for x in (sims, sims.flip(0))))
+                              pixel_impl=impl) for x in (sims, sims.flip(0), sims.roll(1, 0))))
     del outs, sims, ref
 
-    n_path = n_witness  # the witness, then the first two 2-D solves of each size, untimed
+    n_path = n_witness  # the witness, then the first three 2-D solves of each size, untimed
     for size in sizes_2d:
         r, t = phantom2d(size, seed + size)
         before = [fn.launches for fn in BLS_KERNELS + BLOCKED_KERNELS]
         misses = GRAPHS.misses
         with graph_witness(f"2-D solve {size}") as held:
-            # its key's first call (witness_fresh above dropped every graph)
+            # its key's first sighting (witness_fresh above dropped every graph)
             binary, solved = apply_bilateral_solver2d(t, r)
-            apply_bilateral_solver2d(t.flip(0), r)  # a replay on another target
+            apply_bilateral_solver2d(t.flip(0), r)  # a capture on another target
+            apply_bilateral_solver2d(t.flip(1), r)  # a replay on a third
         after = [fn.launches for fn in BLS_KERNELS + BLOCKED_KERNELS]
         splat4, slice5, _, rb, urb, splat7, slice7 = (a - b for a, b in zip(after, before))
         if (splat7, slice7) != (3, 3) or splat4 or slice5 or rb or urb \
-                or GRAPHS.misses - misses != 1 or held != {"first": 1, "replay": 1}:
+                or GRAPHS.misses - misses != 1 or held != {"eager": 1, "capture": 1, "replay": 1}:
             raise AssertionError(f"2-D solve launches: {[a - b for a, b in zip(after, before)]}, "
                                  f"graphed solves held {held}")
         n_path = [n + d for n, d in zip(n_path, (rb, urb, splat7, slice7))]
@@ -1653,7 +1946,7 @@ def phase_coarse_to_fine(seed, cases=((256, BLS_C), (512, 1))):
         shape = (size,) * 3
         ref, sims = whole_grid_case(size, seed + 17, C)
         res = {}
-        since = (GRAPHS.hits, GRAPHS.misses)
+        since = graph_counts()
         reserved = torch.cuda.memory_reserved() / 2**30
         # 25 fine steps (ROADMAP §C 7) at the whole grid's size only
         order = (("direct", None), ("c2f", c2f)) + ((("c2f25", c2f25),) * 2 if C > 1 else ())
@@ -1664,7 +1957,8 @@ def phase_coarse_to_fine(seed, cases=((256, BLS_C), (512, 1))):
         stats, corr = map_deviation(res["c2f_out"], res["direct_out"])
         print(f"coarse-to-fine {shape} C={C}: direct {[r[0] for r in res['direct']]} s, peak "
               f"{res['direct'][0][1] / 2**30} GiB; coarse-to-fine {[r[0] for r in res['c2f']]} s, "
-              f"peak {res['c2f'][0][1] / 2**30} GiB (each first run captures); maps: {stats}")
+              f"peak {res['c2f'][0][1] / 2**30} GiB (each key's first run eager, its second "
+              f"captures); maps: {stats}")
         if "c2f25" in res:
             stats25, corr25 = map_deviation(res["c2f25_out"], res["direct_out"])
             print(f"coarse-to-fine {shape} C={C}, fine_maxiter 25: "
@@ -1678,9 +1972,10 @@ def phase_coarse_to_fine(seed, cases=((256, BLS_C), (512, 1))):
             raise AssertionError(f"coarse-to-fine {shape}: correlation {corr}")
         del res
         if C > 1:
-            # two chunks of four classes: a capture and a replay on other classes
-            witness_fresh(f"coarse-to-fine {shape} C={C}", lambda: refine_similarities_batched(
-                sims, None, shape, ref_u8=ref, bs_params=c2f))
+            # two chunks of four classes a call: an eager sighting and a capture,
+            # then replays on other classes
+            witness_fresh(f"coarse-to-fine {shape} C={C}", *(lambda: refine_similarities_batched(
+                sims, None, shape, ref_u8=ref, bs_params=c2f),) * 2)
         coarse_to_fine_floats(shape, ref, sims[0])
         del ref, sims
         torch.cuda.empty_cache()
@@ -1753,7 +2048,7 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
         d.mkdir()
         np.save(d / "volume.npy", vol)
         shutil.copy(feats_path, d / feats_path.name)
-        answered, answers, secs, captured = threading.Semaphore(0), [], [], []
+        answered, answers, secs, kinds = threading.Semaphore(0), [], [], []
 
         def frontend():
             for frame in frames:
@@ -1767,24 +2062,26 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
 
         def on_update(n, dt):
             secs.append(dt)
-            captured.append(GRAPHS.misses)
+            kinds.append(graph_kinds(last[0]))
+            last[0] = graph_counts()
             answered.release()
 
         watch = functools.partial(session_module.watch_directory, on_update=on_update)
         for fn in counted:
             fn.launches = 0
         thread = threading.Thread(target=frontend, daemon=True)
-        since = (GRAPHS.hits, GRAPHS.misses)
-        # the first edit's solve is held against the eager body (its time includes that run)
+        since = graph_counts()
+        last = [since]
+        # the start-up warm-up's and the first edit's refine cores are held against
+        # their witness (the first edit's time includes that run)
         with mock.patch.object(session_module, "watch_directory", watch), \
-                graph_witness("served edit", calls=1) as held:
+                graph_witness("served edit", calls=2) as held, timed_captures() as caps:
             thread.start()
             serve.main(["--data", str(d), "--max-updates", str(len(frames)), "--poll-interval",
                         "0.05"] + (["--bilateral-solver"] if solver else []))
         thread.join(timeout=300)
         cache = graph_line(since)
-        captured = [m > p for m, p in zip(captured, [since[1]] + captured)]
-        if solver and sum(held.values()) != 1 or not solver and any(held.values()):
+        if solver and sum(held.values()) != 2 or not solver and any(held.values()):
             raise AssertionError(f"served path: graphed solves held {held}")
         launches.append([fn.launches for fn in counted])
         if len(answers) != len(frames):
@@ -1838,8 +2135,9 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
                 full_dev.append((got.int() - full[k].int()).abs().float().mean().item())
             prev = {k: (frame[k], sims[k]) for k in frame}
         line = (f"served path{' --bilateral-solver' if solver else ''}: 4 edits answered in "
-                f"{[x * 1e3 for x in secs]} ms (captured a graph {captured}; {cache}; the "
-                f"first edit's solve equals the eager body: {held}); launches (similarity, "
+                f"{[x * 1e3 for x in secs]} ms (graph cache per edit, the first with the start-up "
+                f"warm-up: {kinds}; the captures alone {caps} ms; {cache}; the warm-up's and "
+                f"the first edit's answers equal their witness: {held}); launches (similarity, "
                 f"splat, slice, blur) {launches[-1]}; ")
         print(line + (f"voxels of {sim_shape} that differ by 1, per edited map: answer vs a "
                       f"fresh recompute {n_diff} (the recompute equals its repeat bit for bit, "
@@ -1856,14 +2154,18 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
 
 def phase_fast(seed, workdir: Path):
     out = workdir / "fast_features.npy"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     infer.main(["--data-path", str(fast_volume(seed, workdir)), "--cache-path", str(out),
                 "--feature-output-size", "64", "--fast"])
     dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
     k = np.load(out, allow_pickle=True)[()]["k"]
     if k.shape != (384, 64, 64, 64) or not np.isfinite(k).all():
         raise AssertionError(f"fast features {k.shape}")
-    print(f"fast mode 256^3: {dt} s ({256**3 / dt / 1e6} Mvoxel/s, infer CLI wall incl. weight init)")
+    print(f"fast mode 256^3: {dt} s ({256**3 / dt / 1e6} Mvoxel/s, infer CLI wall incl. weight "
+          f"init); peak memory allocated {peak} GiB")
 
 
 def phase_consistency(seed):
@@ -2914,14 +3216,20 @@ def phase_profile(seed):
         wall = time.perf_counter() - t0
     device_breakdown(prof, wall, "3 interactive requests, 64^3 features")
 
-    bls_requests(vol, feats, anns)  # warm-up: each request's solve graph captured
-    since = (GRAPHS.hits, GRAPHS.misses)
+    ref = make_bls_reference(vol, tuple(n // 2 for n in vol.shape), device="cuda")
+
+    for _ in range(2):  # warm-up: each request's key seen, then its refine core captured
+        bls_requests(vol, feats, anns, ref=ref)
+    since = graph_counts()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        bls_requests(vol, feats, anns)
+        bls_requests(vol, feats, anns, ref=ref)
         wall = time.perf_counter() - t0
     device_breakdown(prof, wall, "3 refined requests (bilateral_solver, bucket 8), 64^3 "
                      f"features; {graph_line(since)}")
+    with profile(activities=acts, with_stack=True, record_shapes=True) as prof:
+        bls_requests(vol, feats, anns, ref=ref)
+    copy_sources(prof, "3 refined requests")
 
     phantom_128 = trainer_phantom(seed, 128)
     for name in ("PAWSTrainer", "DenseContrastiveTrainer"):
@@ -2991,11 +3299,14 @@ def main() -> int:
         n_k3 = phase_fused_path(args.seed, Path(tmp))
         n_bls = phase_refinement(args.seed, Path(tmp), vol, labels, feat_t)
         del feat_t
+        phase_core_witness(args.seed)
+        phase_capture_parts(args.seed)
         phase_whole_grid(args.seed)
         phase_fast(args.seed, Path(tmp))
         phase_consistency(args.seed)
         n_blocked = phase_blocked_path(args.seed)
         phase_coarse_to_fine(args.seed)
+        phase_graph_memory(args.seed)
         phase_served(args.seed, Path(tmp), vol, labels,
                      Path(tmp) / "volume_vits8_all_features64.npy")
         n_sim += phase_tools(args.seed, Path(tmp))
@@ -3023,7 +3334,7 @@ def main() -> int:
     ]
     if min(n for *_, n in kernel_list) == 0:
         raise AssertionError(f"a kernel was launched no time on its path: {kernel_list}")
-    print(f"bilateral solve graphs over the whole run: {graph_line((0, 0))}")
+    print(f"graphs over the whole run: {graph_line((0, 0, 0))}")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,

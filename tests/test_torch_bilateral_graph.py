@@ -1,12 +1,15 @@
-"""The captured bilateral solve of vittf_tpu_torch.ops.bilateral, on the CPU.
+"""The graph cache (vittf_tpu_torch.utils.cuda_graphs) and the captured
+bilateral solve of vittf_tpu_torch.ops.bilateral, on the CPU.
 
-On CUDA tensors in a kernel form ``bilateral_solve_gray_batched`` replays
-one CUDA graph per key (``_graph_key``: device, (B, *spatial), form and the
-JAX twin's static arguments); ``chip_smoke.py`` holds every graphed solve
-on the card against the eager body (``torch.equal``), first call and
-replay. Here: the key, the cache's bound, the launch bookkeeping on stub
-entries, and the CPU route, which is the eager body itself and matches the
-JAX solve at the tolerance of tests/test_torch_bilateral.py.
+On CUDA tensors in a kernel form ``bilateral_solve_gray_batched`` goes
+through the graph cache, one CUDA graph per key (``_graph_key``: device,
+(B, *spatial), form and the JAX twin's static arguments): eager on the
+key's first sighting, captured on the second, replayed after, within a
+count bound and a byte budget; ``chip_smoke.py`` holds every graphed solve
+on the card against the eager body (``torch.equal``), capture and replay.
+Here: the key, the sighting policy, the bounds, the launch bookkeeping on
+stub entries, and the CPU route, which is the eager body itself and matches
+the JAX solve at the tolerance of tests/test_torch_bilateral.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 
 from vittf_tpu.ops import bilateral as jb
 from vittf_tpu_torch.ops import bilateral as tb
+from vittf_tpu_torch.utils import cuda_graphs as cg
 
 CUDA0 = torch.device("cuda", 0)
 
@@ -83,9 +87,9 @@ def test_cpu_route_is_the_eager_body_and_matches_jax(rank, coarse_to_fine):
         kw = dict(sigma_spatial=4, sigma_luma=5)
     kw["coarse_to_fine"] = coarse_to_fine
     args = [torch.from_numpy(a)[None] for a in (t, luma, c)]
-    lookups = (tb._GRAPHS.hits, tb._GRAPHS.misses)
+    lookups = (cg.GRAPHS.hits, cg.GRAPHS.misses, cg.GRAPHS.eager)
     got = tb.bilateral_solve_gray_batched(*args, **kw)
-    assert (tb._GRAPHS.hits, tb._GRAPHS.misses) == lookups
+    assert (cg.GRAPHS.hits, cg.GRAPHS.misses, cg.GRAPHS.eager) == lookups
     assert torch.equal(got, tb._bilateral_solve_eager(*args, **_solve_kw(**kw)))
     want = np.asarray(jb.bilateral_solve_gray(*map(jnp.asarray, (t, luma, c)),
                                               pixel_impl="scan", **kw))
@@ -102,59 +106,143 @@ def test_graphed_solve_refuses_inputs_the_kernels_refuse():
         tb._graphed_solve(t, torch.zeros(8, 8), t, _solve_kw())
 
 
+class _StubGraph:
+    """Stands in for a CUDAGraph: a replay writes ``fn(*inputs)`` into the
+    output buffer, as the captured kernels would."""
+
+    def __init__(self, fn, inputs, output):
+        self.fn, self.inputs, self.output, self.replays = fn, inputs, output, 0
+
+    def replay(self):
+        self.output.copy_(self.fn(*self.inputs))
+        self.replays += 1
+
+
+def _stub_make(made, nbytes=1, launches=None):
+    """``make`` for ``GraphCache.call``: a stub graph of ``fn`` = sum of the
+    arguments, ``nbytes`` bytes; records each capture's arguments."""
+    def make(*args):
+        made.append(args)
+        inputs = tuple(x.clone() for x in args)
+        output = torch.empty_like(args[0])
+        graph = _StubGraph(lambda *a: sum(a), inputs, output)
+        return cg.Graph(graph, inputs, output, launches or {}, nbytes)
+    return make
+
+
+def _eager(*args):
+    return sum(args)
+
+
+def test_first_sighting_runs_eager_and_the_second_captures():
+    cache, made = cg.GraphCache(bound=4, budget=100), []
+    x, y, z = (torch.full((3,), v) for v in (1.0, 2.0, 5.0))
+    got = cache.call("k", (x, y), _eager, _stub_make(made), 100)
+    assert torch.equal(got, x + y) and not made and not cache.entries
+    assert list(cache.sightings) == ["k"] and (cache.hits, cache.misses, cache.eager) == (0, 0, 1)
+    got = cache.call("k", (y, z), _eager, _stub_make(made), 100)  # captures, then replays
+    assert torch.equal(got, y + z) and len(made) == 1 and list(cache.entries) == ["k"]
+    assert not cache.sightings and (cache.hits, cache.misses, cache.eager) == (0, 1, 1)
+    got = cache.call("k", (z, x), _eager, _stub_make(made), 100)  # a replay on other inputs
+    assert torch.equal(got, z + x) and len(made) == 1
+    assert cache.entries["k"].graph.replays == 2 and (cache.hits, cache.misses) == (1, 1)
+
+
+def test_sightings_are_bounded_and_least_recently_seen_go_first():
+    cache, made = cg.GraphCache(bound=4, budget=100, sighting_bound=2), []
+    x = (torch.ones(2),)
+    for key in ("a", "b", "c"):  # "a" is forgotten when "c" is seen
+        cache.call(key, x, _eager, _stub_make(made), 100)
+    assert list(cache.sightings) == ["b", "c"]
+    cache.call("a", x, _eager, _stub_make(made), 100)  # a first sighting again: eager
+    assert not made and list(cache.sightings) == ["c", "a"] and cache.eager == 4
+    cache.call("c", x, _eager, _stub_make(made), 100)  # its second sighting: captured
+    assert len(made) == 1 and list(cache.entries) == ["c"] and list(cache.sightings) == ["a"]
+
+
+def _captured(cache, key, made, nbytes, x=(torch.ones(2),)):
+    """Two calls of ``key``: an eager sighting, then a capture of ``nbytes``."""
+    for _ in range(2):
+        cache.call(key, x, _eager, _stub_make(made, nbytes), cache.budget)
+
+
 def test_graph_cache_evicts_the_entry_used_least_recently():
-    cache = tb._GraphCache(bound=2)
-    made = []
-
-    def make(name):
-        def f():
-            made.append(name)
-            return name
-        return f
-
-    assert cache.get("a", make("a")) == "a"
-    assert cache.get("b", make("b")) == "b"
-    assert cache.get("a", make("a2")) == "a"  # a hit: made nothing, "a" is now the newest
-    assert cache.get("c", make("c")) == "c"  # evicts "b"
+    cache, made = cg.GraphCache(bound=2, budget=100), []
+    _captured(cache, "a", made, 1)
+    _captured(cache, "b", made, 1)
+    cache.call("a", (torch.ones(2),), _eager, _stub_make(made), 100)  # a hit: "a" is newest
+    _captured(cache, "c", made, 1)  # evicts "b"
     assert list(cache.entries) == ["a", "c"]
-    assert cache.get("b", make("b2")) == "b2"  # "b" was gone: made again, evicts "a"
+    _captured(cache, "b", made, 1)  # "b" was gone: seen, captured again, evicts "a"
     assert list(cache.entries) == ["c", "b"]
-    assert made == ["a", "b", "c", "b2"]
-    assert (cache.hits, cache.misses) == (1, 4)
+    assert len(made) == 4 and (cache.hits, cache.misses, cache.eager) == (1, 4, 4)
     cache.clear()
-    assert not cache.entries and cache.get("d", make("d")) == "d"
+    assert not cache.entries and not cache.sightings
+
+
+def test_graph_cache_evicts_until_its_bytes_fit_the_budget():
+    cache, made = cg.GraphCache(bound=8, budget=100), []
+    for key, nbytes in (("a", 40), ("b", 30), ("c", 20)):
+        _captured(cache, key, made, nbytes)
+    assert list(cache.entries) == ["a", "b", "c"] and cache.nbytes == 90
+    cache.call("a", (torch.ones(2),), _eager, _stub_make(made), 100)  # "b" is now the oldest
+    _captured(cache, "d", made, 50)  # 140 bytes: "b" goes, then "c"
+    assert list(cache.entries) == ["a", "d"] and cache.nbytes == 90
+    _captured(cache, "e", made, 100)  # alone at the budget: every other entry goes
+    assert list(cache.entries) == ["e"] and cache.nbytes == 100
+
+
+def test_a_capture_over_the_budget_is_replayed_once_then_runs_eager():
+    cache, made = cg.GraphCache(bound=8, budget=100), []
+    _captured(cache, "small", made, 60)
+    x, y = torch.full((2,), 3.0), torch.full((2,), 4.0)
+    cache.call("big", (x,), _eager, _stub_make(made, 101), 100)  # eager sighting
+    got = cache.call("big", (x, y), _eager, _stub_make(made, 101), 100)
+    assert torch.equal(got, x + y) and len(made) == 2  # captured and replayed once
+    assert list(cache.entries) == ["small"] and cache.sightings["big"] == cg._EAGER_ONLY
+    for _ in range(3):  # from then on eager, no capture
+        assert torch.equal(cache.call("big", (y, y), _eager, _stub_make(made, 101), 100), y + y)
+    assert len(made) == 2 and (cache.misses, cache.eager) == (2, 5)
+    assert list(cache.entries) == ["small"]
 
 
 def test_graph_cache_keeps_no_entry_when_making_it_fails():
-    cache = tb._GraphCache(bound=1)
-    cache.get("a", lambda: "a")
+    cache, made = cg.GraphCache(bound=1, budget=100), []
+    _captured(cache, "a", made, 1)
 
-    def fail():
+    def fail(*args):
         raise RuntimeError("capture failed")
 
+    x = (torch.ones(2),)
+    cache.call("b", x, _eager, fail, 100)  # first sighting: eager, nothing made
     with pytest.raises(RuntimeError, match="capture failed"):
-        cache.get("b", fail)
+        cache.call("b", x, _eager, fail, 100)
     assert not cache.entries
 
 
-class _StubGraph:
-    """Stands in for a CUDAGraph: a replay writes target + luma · confidence
-    into the output buffer, as a captured kernel would."""
+def test_graphed_wires_the_body_and_its_capture(monkeypatch):
+    """``graphed`` on CPU tensors with the capture stubbed: the body runs
+    eager first, the capture gets the body and the counted wrappers."""
+    calls, made = [], []
 
-    def __init__(self, inputs, output):
-        self.inputs, self.output, self.replays = inputs, output, 0
+    def capture(body, args, wrappers):
+        calls.append((body, wrappers))
+        return _stub_make(made)(*args)
 
-    def replay(self):
-        t, lu, c = self.inputs
-        self.output.copy_(t + lu * c)
-        self.replays += 1
+    monkeypatch.setattr(cg, "capture", capture)
+    cache = cg.GraphCache(bound=2, budget=100)
+    x, y = torch.ones(3), torch.full((3,), 2.0)
+    for a, b in ((x, y), (y, y), (x, x)):
+        assert torch.equal(cg.graphed("k", (a, b), _eager, tb._WRAPPERS, cache), a + b)
+    assert calls == [(_eager, tb._WRAPPERS)]
+    assert (cache.eager, cache.misses, cache.hits) == (1, 1, 1)
 
 
 def test_replay_adds_the_capture_deltas_once_per_call():
     inputs = tuple(torch.zeros(2, 3, 4) for _ in range(3))
     output = torch.empty(2, 3, 4)
-    graph = _StubGraph(inputs, output)
-    entry = tb._SolveGraph(graph, inputs, output, {tb.bls_blur: 37, tb.bls_splat: 1})
+    graph = _StubGraph(lambda t, lu, c: t + lu * c, inputs, output)
+    entry = cg.Graph(graph, inputs, output, {tb.bls_blur: 37, tb.bls_splat: 1}, 0)
     before = {fn: fn.launches for fn in tb._WRAPPERS}
     rng = np.random.default_rng(0)
     for k in range(1, 4):
@@ -182,7 +270,7 @@ def test_uncounted_returns_the_deltas_and_restores_the_counters():
         tb.bls_splat_blocked.launches += 1
         return "graph"
 
-    out, counted = tb._uncounted(capture)
+    out, counted = cg.uncounted(capture, tb._WRAPPERS)
     assert out == "graph" and counted == {tb.bls_blur: 37, tb.bls_splat_blocked: 1}
     assert {fn: fn.launches for fn in tb._WRAPPERS} == before
 
@@ -191,5 +279,5 @@ def test_uncounted_returns_the_deltas_and_restores_the_counters():
         raise RuntimeError("operation not permitted when stream is capturing")
 
     with pytest.raises(RuntimeError):
-        tb._uncounted(fails)
+        cg.uncounted(fails, tb._WRAPPERS)
     assert {fn: fn.launches for fn in tb._WRAPPERS} == before

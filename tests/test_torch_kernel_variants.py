@@ -44,10 +44,15 @@ def test_cli_refuses_without_a_card(capsys):
 
 @pytest.mark.parametrize("fault", kv.GRAPH_FAULTS, ids=[f[0] for f in kv.GRAPH_FAULTS])
 def test_graph_fault_patches_a_name_that_exists(fault):
-    """Each planted graph fault replaces a name ``ops/bilateral.py`` still
+    """Each planted graph fault replaces a name its module (``utils/
+    cuda_graphs.py``, ``ops/bilateral.py``, ``pipeline/refine.py``) still
     has, with a value of the same kind."""
-    from vittf_tpu_torch.ops import bilateral
-
     _, owner, attr, value = fault
-    old, new = getattr(owner(bilateral), attr), value(bilateral)
+    old = getattr(kv._owner(owner), attr)
+    new = value(kv._owner(owner.partition(":")[0]))
     assert callable(old) == callable(new) and new != old
+
+
+def test_graph_faults_cover_the_refine_core():
+    """At least three planted faults of the refine core's graph route."""
+    assert sum("starts" in name or "refine core" in name for name, *_ in kv.GRAPH_FAULTS) >= 3

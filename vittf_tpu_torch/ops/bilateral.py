@@ -28,17 +28,16 @@ the counterpart of the JAX twin's ``jax.jit``.
 """
 from __future__ import annotations
 
-import collections
-import dataclasses
 import functools
+import inspect
 import math
-import threading
 
 import numpy as np
 import torch
 
 from vittf_tpu_torch import kernels
 from vittf_tpu_torch.ops.morphology import filter_sobel_separated
+from vittf_tpu_torch.utils import cuda_graphs
 from vittf_tpu_torch.utils.tensor import make_5d
 
 GRID_PARAMS_DEFAULT = {  # reference bilateral_solver3d.py:156-160
@@ -654,120 +653,34 @@ def _bilateral_solve_eager(
 # the JAX twin's static_argnames but pixel_impl, which the key holds as its form
 _STATIC_ARGS = ("sigma_spatial", "sigma_luma", "lam", "A_diag_min", "cg_tol", "cg_maxiter",
                 "bistoch_iters", "blur_dim", "coarse_to_fine", "fine_maxiter")
+_SOLVE_DEFAULTS = {name: p.default for name, p in
+                   inspect.signature(_bilateral_solve_eager).parameters.items()
+                   if p.default is not inspect.Parameter.empty}
 _WRAPPERS = (bls_splat, bls_slice, bls_blur, bls_reblock, bls_unreblock, bls_splat_blocked,
              bls_slice_blocked)
-GRAPH_BOUND = 8  # captured solves kept per process, each with its buffers and memory pool
 
 
 def _graph_key(device: torch.device, shape, kw: dict) -> tuple:
     """What a captured solve is specific to: the device, (B, *spatial), the
     pixel↔lattice form and every static argument of ``kw`` (the JAX twin's
-    ``jax.jit`` key). 2-D ``'auto'`` and ``'reblock'`` are one form."""
+    ``jax.jit`` key; an argument ``kw`` leaves out takes its default).
+    2-D ``'auto'`` and ``'reblock'`` are one form."""
+    kw = {**_SOLVE_DEFAULTS, **kw}
     form, _ = _pixel_ops(kw["pixel_impl"], len(shape) - 1)
     return (device.index, tuple(shape), form) + tuple(kw[name] for name in _STATIC_ARGS)
 
 
-def _uncounted(run):
-    """``run()`` → (its result, {wrapper: launches it counted}), the counters
-    set back as they were: a capture records launches and makes none."""
-    before = [fn.launches for fn in _WRAPPERS]
-    try:
-        out = run()
-    finally:
-        counted = {fn: fn.launches - n for fn, n in zip(_WRAPPERS, before) if fn.launches != n}
-        for fn, n in zip(_WRAPPERS, before):
-            fn.launches = n
-    return out, counted
-
-
-@dataclasses.dataclass
-class _SolveGraph:
-    """One captured solve: the graph, the buffers it reads (target, luma,
-    confidence; fp32) and writes, and the launches one replay makes."""
-    graph: object  # torch.cuda.CUDAGraph
-    inputs: tuple
-    output: torch.Tensor
-    launches: dict
-
-    def __call__(self, target, luma, confidence) -> torch.Tensor:
-        """Copy the inputs in, replay, count the replay's launches and
-        return a copy of the output, which the next replay overwrites."""
-        for buf, x in zip(self.inputs, (target, luma, confidence)):
-            buf.copy_(x)
-        self.graph.replay()
-        for fn, n in self.launches.items():
-            fn.launches += n
-        return self.output.clone()
-
-
-class _GraphCache:
-    """Captured solves by key, at most ``bound``; a new key evicts the one
-    used least recently. ``hits`` and ``misses`` count lookups; ``lock``
-    orders callers from several threads."""
-
-    def __init__(self, bound: int):
-        self.bound = bound
-        self.entries: collections.OrderedDict = collections.OrderedDict()
-        self.hits = self.misses = 0
-        self.lock = threading.Lock()
-
-    def get(self, key, make):
-        """The entry of ``key``, made by ``make()`` on a miss."""
-        entry = self.entries.get(key)
-        if entry is not None:
-            self.hits += 1
-            self.entries.move_to_end(key)
-            return entry
-        self.misses += 1
-        while len(self.entries) >= self.bound:
-            self.entries.popitem(last=False)  # frees its graph's memory pool
-        entry = self.entries[key] = make()
-        return entry
-
-    def clear(self) -> None:
-        self.entries.clear()
-
-
-_GRAPHS = _GraphCache(GRAPH_BOUND)
-
-
-def _capture(target, luma, confidence, kw: dict) -> _SolveGraph:
-    """Capture ``_bilateral_solve_eager`` on fp32 copies of the inputs. One
-    eager run on a side stream comes first (it loads the kernel library and
-    sets kernel attributes, which a capture must not do first); its
-    launches are real and count."""
-    device = target.device
-    inputs = tuple(torch.empty(target.shape, dtype=torch.float32, device=device)
-                   for _ in range(3))
-    for buf, x in zip(inputs, (target, luma, confidence)):
-        buf.copy_(x)
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            _bilateral_solve_eager(*inputs, **kw)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-
-        def capture():
-            with torch.cuda.graph(graph):
-                return _bilateral_solve_eager(*inputs, **kw)
-
-        output, launches = _uncounted(capture)
-    return _SolveGraph(graph, inputs, output, launches)
-
-
 def _graphed_solve(target, luma, confidence, kw: dict) -> torch.Tensor:
-    """The solve of CUDA tensors in a kernel form: the cached graph of its
-    key, captured on the key's first call, replayed on every call."""
+    """The solve of CUDA tensors in a kernel form through the graph cache
+    (``utils/cuda_graphs.py``): eager on its key's first call, captured on
+    the second, replayed after; on fp32 inputs."""
     if luma.shape != target.shape or confidence.shape != target.shape:
         raise ValueError("bilateral solve: target, luma and confidence differ in shape")
     if luma.device != target.device or confidence.device != target.device:
         raise ValueError("bilateral solve: target, luma and confidence on different devices")
     key = _graph_key(target.device, target.shape, kw)
-    with _GRAPHS.lock:  # a replay's buffers serve one call at a time
-        entry = _GRAPHS.get(key, lambda: _capture(target, luma, confidence, kw))
-        return entry(target, luma, confidence)
+    return cuda_graphs.graphed(key, tuple(x.float() for x in (target, luma, confidence)),
+                               functools.partial(_bilateral_solve_eager, **kw), _WRAPPERS)
 
 
 def bilateral_solve_gray_batched(
@@ -791,12 +704,14 @@ def bilateral_solve_gray_batched(
     serves all B. Returns (B, *spatial) fp32.
 
     On CUDA tensors in a kernel form (``'auto'``, ``'reblock'``) the solve
-    runs as one CUDA graph per key (``_graph_key``: device, shape, form and
-    the static arguments, as the JAX twin's ``jax.jit``): captured on the
-    key's first call, replayed on every call, the same kernels in the same
-    order, so the answer is the eager body's bit for bit. ``GRAPH_BOUND``
-    graphs stay cached, each with its memory. A capture or replay error
-    raises. CPU tensors and ``'scatter'`` run the eager body."""
+    goes through the port's graph cache (``utils/cuda_graphs.py``), one
+    CUDA graph per key (``_graph_key``: device, shape, form and the static
+    arguments, as the JAX twin's ``jax.jit``): the key's first call runs the
+    eager body, the second captures it and replays, later calls replay; the
+    same kernels in the same order, so the answer is the eager body's bit
+    for bit. The cache keeps ``GRAPH_BOUND`` graphs within a byte budget. A
+    capture or replay error raises. CPU tensors and ``'scatter'`` run the
+    eager body."""
     kw = dict(sigma_spatial=sigma_spatial, sigma_luma=sigma_luma, lam=lam,
               A_diag_min=A_diag_min, cg_tol=cg_tol, cg_maxiter=cg_maxiter,
               bistoch_iters=bistoch_iters, blur_dim=blur_dim, pixel_impl=pixel_impl,

@@ -2,11 +2,14 @@
 
 Port of ``vittf_tpu/ops/resize.py``. The weight matrices are the same numpy
 constructions (the reference's ``F.interpolate`` / ``AdaptiveAvgPool3d``
-index rules); they are applied per axis as fp32 tensordots. Nearest resize
+index rules); they are applied per axis as fp32 tensordots, each matrix
+uploaded once per shape and device and kept (``_axis_weights``). Nearest resize
 indexes explicitly (strided slice, repeat or gather), so integer volumes
 such as uint8 similarity maps resize exactly on every device.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -84,9 +87,27 @@ def _adaptive_avg_weight_matrix(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
-def _apply_axis_matrix(x: torch.Tensor, w: np.ndarray, axis: int) -> torch.Tensor:
+_MATRICES = {
+    "linear": _linear_weight_matrix,
+    "cubic": _cubic_weight_matrix,
+    "adaptive_avg": _adaptive_avg_weight_matrix,
+}
+
+
+@functools.lru_cache(maxsize=64)
+def _axis_weights(kind: str, in_size: int, out_size: int, coord_scale: float | None,
+                  dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The (out, in) weight matrix of ``kind`` on ``device`` in ``dtype``:
+    built by numpy and uploaded once per (kind, sizes, scale, dtype,
+    device), a per-shape constant that no caller writes."""
+    args = (in_size, out_size) if coord_scale is None else (in_size, out_size, coord_scale)
+    return torch.as_tensor(_MATRICES[kind](*args), dtype=dtype, device=device)
+
+
+def _apply_axis_matrix(x: torch.Tensor, kind: str, out_size: int, axis: int,
+                       coord_scale: float | None = None) -> torch.Tensor:
     wdt = torch.float64 if x.dtype == torch.float64 else torch.float32
-    wt = torch.as_tensor(w, dtype=wdt, device=x.device)
+    wt = _axis_weights(kind, x.shape[axis], out_size, coord_scale, wdt, x.device)
     moved = torch.tensordot(wt, x.to(wdt), dims=([1], [axis]))
     return torch.movedim(moved, 0, axis).to(x.dtype)
 
@@ -121,9 +142,8 @@ def resize_linear(x: torch.Tensor, size: tuple[int, ...]) -> torch.Tensor:
     parity. Integer tensors are resized in fp32 and cast back, as the JAX
     twin does."""
     for axis, out_size in zip(_spatial_axes(x.ndim, len(size)), size):
-        in_size = x.shape[axis]
-        if in_size != out_size:
-            x = _apply_axis_matrix(x, _linear_weight_matrix(in_size, out_size), axis)
+        if x.shape[axis] != out_size:
+            x = _apply_axis_matrix(x, "linear", out_size, axis)
     return x
 
 
@@ -131,9 +151,8 @@ def resize_cubic(x: torch.Tensor, size: tuple[int, ...]) -> torch.Tensor:
     """Bicubic resize of the trailing axes, align_corners=False, torch parity
     (A=-0.75)."""
     for axis, out_size in zip(_spatial_axes(x.ndim, len(size)), size):
-        in_size = x.shape[axis]
-        if in_size != out_size:
-            x = _apply_axis_matrix(x, _cubic_weight_matrix(in_size, out_size), axis)
+        if x.shape[axis] != out_size:
+            x = _apply_axis_matrix(x, "cubic", out_size, axis)
     return x
 
 
@@ -145,17 +164,13 @@ def resize_cubic_scaled(
     for axis, out_size, cs in zip(
         _spatial_axes(x.ndim, len(size)), size, coord_scales
     ):
-        in_size = x.shape[axis]
-        x = _apply_axis_matrix(x, _cubic_weight_matrix(in_size, out_size, cs), axis)
+        x = _apply_axis_matrix(x, "cubic", out_size, axis, cs)
     return x
 
 
 def adaptive_avg_pool(x: torch.Tensor, size: tuple[int, ...]) -> torch.Tensor:
     """Adaptive average pooling over trailing axes, torch parity."""
     for axis, out_size in zip(_spatial_axes(x.ndim, len(size)), size):
-        in_size = x.shape[axis]
-        if in_size != out_size:
-            x = _apply_axis_matrix(
-                x, _adaptive_avg_weight_matrix(in_size, out_size), axis
-            )
+        if x.shape[axis] != out_size:
+            x = _apply_axis_matrix(x, "adaptive_avg", out_size, axis)
     return x

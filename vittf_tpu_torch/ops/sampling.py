@@ -7,6 +7,8 @@ index for index (``grid_sample_3d`` / ``grid_sample_2d``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -100,7 +102,14 @@ def sample_features2d(
     return feats.reshape(C_cls, A, feat_vol.shape[0])
 
 
+@functools.lru_cache(maxsize=16)
+def _extent(vol_shape: tuple, device: torch.device) -> torch.Tensor:
+    """``vol_shape`` as an fp32 tensor on ``device``, uploaded once per
+    (shape, device); no caller writes it."""
+    return torch.tensor(vol_shape, dtype=torch.float32, device=device)
+
+
 def rel_coords_from_abs(abs_coords: torch.Tensor, vol_shape) -> torch.Tensor:
     """Voxel indices → [-1, 1] relative coords (predict_ntf.py:56 parity)."""
-    extent = torch.tensor(tuple(vol_shape), dtype=torch.float32, device=abs_coords.device)
+    extent = _extent(tuple(int(s) for s in vol_shape), abs_coords.device)
     return (abs_coords.float() + 0.5) / extent * 2.0 - 1.0

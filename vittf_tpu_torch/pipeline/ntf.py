@@ -148,8 +148,10 @@ def compute_similarities(
     coords_p[: abs_np.shape[0]] = abs_np
     m = class_mean_matrix(list(counts), apad)
 
-    dev = features.device
-    coords_t, m_t = torch.from_numpy(coords_p).to(dev), torch.from_numpy(m).to(dev)
+    # one upload of both: the padded coordinates, then the mean matrix
+    packed = torch.from_numpy(np.concatenate([coords_p.ravel(), m.ravel()])).to(features.device)
+    coords_t = packed[:coords_p.size].view(coords_p.shape)
+    m_t = packed[coords_p.size:].view(m.shape)
     if not bilateral_solver:
         sims_u8 = _similarities(in_dims, features, coords_t, m_t, sim_shape, threshold,
                                 exponent, mean_first, impl)
@@ -169,7 +171,7 @@ def compute_similarities(
         return {name: sims_u8[c] for c, name in enumerate(annotations.keys())}
     # reference-parity mode: per-class tight crop boxes, quantized without a
     # clamp (an all-zero class gives 255/0·0 = NaN, which quantizes to 0)
-    volume = torch.as_tensor(volume, device=dev)  # one upload for every class
+    volume = torch.as_tensor(volume, device=features.device)  # one upload for every class
     similarities = {}
     for c, name in enumerate(annotations.keys()):
         sim = refine_similarity(sims[c], volume, sim_shape, pixel_impl=pixel_impl)

@@ -12,7 +12,14 @@ Two entry points:
 - ``refine_similarities_batched``: all classes at once over one common
   bucketed crop shape: one box pass, one host fetch of the boxes, and one
   batched crop → Sobel → solve → write-back → quantize per class chunk, so
-  each kernel launch serves every class of the chunk.
+  each kernel launch serves every class of the chunk. On CUDA tensors in a
+  kernel form that core runs through the port's graph cache
+  (``utils/cuda_graphs.py``), one CUDA graph per core key (device, C,
+  sim_shape, crop_shape, the solve's form and static arguments: the JAX
+  twin's ``static_argnames`` plus the shapes), the crop starts a device
+  input (``_refine_indexed_core``: index arithmetic for JAX's
+  ``dynamic_slice`` / ``dynamic_update_slice``); the slice-based
+  ``_refine_batched_core`` is its witness.
 
 The JAX twin's speculative path (``_refine_batched_speculative``,
 ``VITTF_BLS_SPECULATIVE``) hides round trips of a remote TPU and is not
@@ -20,16 +27,25 @@ ported.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 import torch
 
-from vittf_tpu_torch.ops.bilateral import apply_bilateral_solver3d, bilateral_solve_gray_batched
+from vittf_tpu_torch.ops.bilateral import (
+    _WRAPPERS,
+    _bilateral_solve_eager,
+    _graph_key,
+    _pixel_ops,
+    apply_bilateral_solver3d,
+    bilateral_solve_gray_batched,
+)
 from vittf_tpu_torch.ops.crop import crop_pad, write_crop_into
 from vittf_tpu_torch.ops.morphology import filter_sobel_separated
 from vittf_tpu_torch.ops.resize import resize_linear
 from vittf_tpu_torch.pipeline.ntf import quantize_uint8_torch
+from vittf_tpu_torch.utils import cuda_graphs
 from vittf_tpu_torch.utils.tensor import make_5d, norm_minmax
 
 BLS_GRID_PARAMS = {  # predict_ntf.py:75-79
@@ -153,6 +169,65 @@ def _refine_batched_core(sims: torch.Tensor, vol_u8: torch.Tensor, starts: np.nd
     return quantize_uint8_torch(255.0 / quant * out)
 
 
+def _crop_index(starts: torch.Tensor, crop_shape: tuple[int, int, int],
+                sim_shape: tuple[int, int, int]) -> torch.Tensor:
+    """(C, prod(crop_shape)) flat indices into a ``sim_shape`` map of the
+    crops at ``starts`` ((C, 3) int64): ``starts[:, d] + arange(crop_d)``
+    per axis, the index arithmetic of JAX's ``dynamic_slice``."""
+    ax = [starts[:, d, None] + torch.arange(n, device=starts.device)
+          for d, n in enumerate(crop_shape)]
+    _, H, D = sim_shape
+    flat = (ax[0][:, :, None, None] * H + ax[1][:, None, :, None]) * D + ax[2][:, None, None, :]
+    return flat.reshape(starts.shape[0], -1)
+
+
+def _refine_indexed_core(sims: torch.Tensor, vol_u8: torch.Tensor, starts: torch.Tensor,
+                         crop_shape: tuple[int, int, int], solve_kw: dict) -> torch.Tensor:
+    """``_refine_batched_core`` with the crop starts a (C, 3) int64 tensor on
+    the device: crops gathered and written back through index arithmetic
+    (JAX's ``dynamic_slice`` / ``dynamic_update_slice``), so its launches do
+    not depend on the starts and one captured graph serves every start.
+    The solve runs its eager body (graphs do not nest). Bit-equal to
+    ``_refine_batched_core``: the same values reach the same ops."""
+    C, sim_shape = sims.shape[0], tuple(sims.shape[1:])
+    idx = _crop_index(starts, crop_shape, sim_shape)
+    csim = torch.gather(sims.reshape(C, -1), 1, idx).reshape((C,) + crop_shape)
+    cvol = vol_u8.reshape(-1)[idx].reshape((C,) + crop_shape)
+    sob = filter_sobel_separated(cvol[:, None].float() / 255.0).reshape((C,) + crop_shape)
+    conf = sob.amax(dim=(1, 2, 3), keepdim=True) - sob
+    solved = _bilateral_solve_eager(csim, cvol.float(), conf, **solve_kw)
+    out = sims.reshape(C, -1).scatter(1, idx, solved.reshape(C, -1)).reshape(sims.shape)
+    # clamp keeps all-zero (empty) classes at 0 instead of NaN
+    quant = torch.clamp(0.99 * out.amax(dim=(1, 2, 3), keepdim=True), min=1e-30)
+    return quantize_uint8_torch(255.0 / quant * out)
+
+
+def _core_key(device: torch.device, shape, crop_shape: tuple[int, int, int],
+              solve_kw: dict) -> tuple:
+    """What a captured refine core is specific to: the device, C and
+    ``sim_shape`` of ``shape`` (C, *sim_shape), the crop shape, the solve's
+    form and static arguments (the JAX twin's ``static_argnames`` plus the
+    shapes); never the crop starts, an input of the graph."""
+    return ("refine core", tuple(shape[1:])) + _graph_key(
+        device, (shape[0],) + tuple(crop_shape), solve_kw)
+
+
+def _refine_core(sims: torch.Tensor, vol_u8: torch.Tensor, starts: torch.Tensor,
+                 crop_shape: tuple[int, int, int], solve_kw: dict) -> torch.Tensor:
+    """The refine core of one class chunk, ``starts`` (C, 3) int64 on the
+    chunk's device. CUDA tensors in a kernel form go through the graph
+    cache (``utils/cuda_graphs.py``: eager on the key's first call,
+    captured on the second, replayed after), the starts an input of the
+    graph; CPU tensors and ``'scatter'`` run ``_refine_indexed_core``
+    eagerly."""
+    form, _ = _pixel_ops(solve_kw.get("pixel_impl", "auto"), 3)
+    if sims.device.type != "cuda" or form == "scatter":
+        return _refine_indexed_core(sims, vol_u8, starts, crop_shape, solve_kw)
+    key = _core_key(sims.device, sims.shape, crop_shape, solve_kw)
+    body = functools.partial(_refine_indexed_core, crop_shape=crop_shape, solve_kw=solve_kw)
+    return cuda_graphs.graphed(key, (sims, vol_u8, starts), body, _WRAPPERS)
+
+
 def refine_similarities_batched(sims: torch.Tensor, volume, sim_shape: tuple[int, int, int],
                                 grid_params: dict | None = None,
                                 bs_params: dict | None = None,
@@ -194,12 +269,13 @@ def refine_similarities_batched(sims: torch.Tensor, volume, sim_shape: tuple[int
     mi = np.clip(boxes[:, 0] - 2, 0, None)  # pad=2, crop_pad parity
     ma = np.minimum(boxes[:, 1] + 2, np.asarray(sim_shape))
     ext = np.max((ma - mi)[nonempty], axis=0)
-    ext = np.minimum(-(-ext // shape_bucket) * shape_bucket, sim_shape)
-    # per-class starts, shifted back where the common box would overflow;
+    ext = tuple(int(e) for e in np.minimum(-(-ext // shape_bucket) * shape_bucket, sim_shape))
+    # per-class starts, made on the device from its boxes (no upload): the
+    # padded box's start, shifted back where the common box would overflow;
     # empty classes solve a corner crop of zeros (writes zeros back)
-    starts = np.minimum(mi, np.asarray(sim_shape) - ext)
-    starts[~nonempty] = 0
-    ext = tuple(int(e) for e in ext)
+    starts = torch.stack([(boxes_d[:, 0, d] - 2).clamp(0, sim_shape[d] - ext[d])
+                          for d in range(3)], dim=1)
+    starts = torch.where(nonempty_d[:, None], starts, 0)
     c2f = bs.get("coarse_to_fine")
     if c2f is None:
         c2f = os.environ.get("VITTF_BLS_COARSE", "0") != "0"
@@ -215,13 +291,13 @@ def refine_similarities_batched(sims: torch.Tensor, volume, sim_shape: tuple[int
     budget = int(os.environ.get("VITTF_BLS_CHUNK_VOXELS", 70_000_000))
     chunk = max(1, budget // max(1, int(np.prod(ext))))
     if chunk >= C:
-        return _refine_batched_core(sims, vol_u8, starts, ext, solve_kw)
+        return _refine_core(sims, vol_u8, starts, ext, solve_kw)
     n_pad = -C % chunk
     if n_pad:
         sims = torch.cat([sims, sims.new_zeros((n_pad,) + tuple(sim_shape))])
-        starts = np.concatenate([starts, np.zeros((n_pad, 3), starts.dtype)])
+        starts = torch.cat([starts, starts.new_zeros((n_pad, 3))])
     outs = [
-        _refine_batched_core(sims[i:i + chunk], vol_u8, starts[i:i + chunk], ext, solve_kw)
+        _refine_core(sims[i:i + chunk], vol_u8, starts[i:i + chunk], ext, solve_kw)
         for i in range(0, C + n_pad, chunk)
     ]
     return torch.cat(outs)[:C]

@@ -19,8 +19,9 @@ hash, so each copy builds its own); the repository's sources are never edited.
 A fault prints ``FAILED <name>: <what the phase raised>`` when the phase
 catches it, which is the wanted outcome, and ``PASSED <name>`` when it does
 not; an ablation prints ``PASSED <name>: <times in ms>``. ``graph-faults``
-plants its faults in the bilateral solve's CUDA graphs (``ops/bilateral.py``)
-by patching Python names for one run of ``_check_graphs``, with the same
+plants its faults in the graph routes (``utils/cuda_graphs.py``, the solve's
+key in ``ops/bilateral.py``, the refine core in ``pipeline/refine.py``) by
+patching Python names for one run of ``_check_graphs``, with the same
 verdicts.
 """
 from __future__ import annotations
@@ -400,31 +401,80 @@ def _time_similarity(cs, torch):
     return ", ".join(out)
 
 
-def _stale_replay(self, target, luma, confidence):
-    """``_SolveGraph.__call__`` without the copy of the inputs in."""
+def _stale_replay(self, *args):
+    """``Graph.__call__`` without the copy of the inputs in."""
     self.graph.replay()
     return self.output.clone()
 
 
-# (name, owner of the patched name given ops.bilateral, name, its value given
-# ops.bilateral): faults of the solve graphs that ``_check_graphs`` must catch
+def _stale_starts(self, *args):
+    """``Graph.__call__`` copying in every input but the last, a refine
+    core's starts."""
+    for buf, x in zip(self.inputs[:-1], args[:-1]):
+        buf.copy_(x)
+    self.graph.replay()
+    return self.output.clone()
+
+
+def _baked_starts(refine):
+    """``refine._refine_core`` whose body crops at the host starts of the
+    call it is captured on (Python slices of ``_refine_batched_core``), the
+    starts input left unread."""
+    from unittest import mock
+
+    def body(sims, vol_u8, _starts, crop_shape, solve_kw, starts):
+        with mock.patch.object(refine, "bilateral_solve_gray_batched",
+                               refine._bilateral_solve_eager):
+            return refine._refine_batched_core(sims, vol_u8, starts, crop_shape, solve_kw)
+
+    def core(sims, vol_u8, starts, crop_shape, solve_kw):
+        key = refine._core_key(sims.device, sims.shape, crop_shape, solve_kw)
+        return refine.cuda_graphs.graphed(
+            key, (sims, vol_u8, starts),
+            functools.partial(body, crop_shape=crop_shape, solve_kw=solve_kw,
+                              starts=starts.cpu().numpy()), refine._WRAPPERS)
+    return core
+
+
+def _owner(path):
+    """The module ``vittf_tpu_torch.<path>``, or a name in it (``mod:Name``)."""
+    import importlib
+
+    module, _, name = path.partition(":")
+    mod = importlib.import_module("vittf_tpu_torch." + module)
+    return getattr(mod, name) if name else mod
+
+
+# (name, owner of the patched name, name, its value given the owner's module):
+# faults of the graph routes that ``_check_graphs`` must catch
 GRAPH_FAULTS = [
-    ("graph replayed without copying the inputs in", lambda b: b._SolveGraph, "__call__",
-     lambda b: _stale_replay),
-    ("graph key without cg_tol", lambda b: b, "_STATIC_ARGS",
-     lambda b: tuple(a for a in b._STATIC_ARGS if a != "cg_tol")),
-    ("graph key without the form", lambda b: b, "_graph_key",
-     lambda b: lambda device, shape, kw: (device.index, tuple(shape))
-     + tuple(kw[a] for a in b._STATIC_ARGS)),
+    ("graph replayed without copying the inputs in", "utils.cuda_graphs:Graph", "__call__",
+     lambda m: _stale_replay),
+    ("graph key without cg_tol", "ops.bilateral", "_STATIC_ARGS",
+     lambda m: tuple(a for a in m._STATIC_ARGS if a != "cg_tol")),
+    ("graph key without the form", "ops.bilateral", "_graph_key",
+     lambda m: lambda device, shape, kw: (device.index, tuple(shape))
+     + tuple({**m._SOLVE_DEFAULTS, **kw}[a] for a in m._STATIC_ARGS)),
+    ("refine core with the starts baked in as host constants", "pipeline.refine", "_refine_core",
+     _baked_starts),
+    ("refine core key without crop_shape", "pipeline.refine", "_core_key",
+     lambda m: lambda device, shape, crop_shape, solve_kw: ("refine core", tuple(shape[1:]))
+     + m._graph_key(device, tuple(shape), solve_kw)),
+    ("replay without copying the starts in", "utils.cuda_graphs:Graph", "__call__",
+     lambda m: _stale_starts),
 ]
 
 
 def _check_graphs(cs, torch):
-    """Four graphed solves of five 48 x 40 x 56 crops, each held against the
-    eager body (``chip_smoke.witness_fresh``): a key's first call, a replay
-    on other inputs, then those inputs at another ``cg_tol`` and in the
-    split form, each its own key."""
+    """The refine core witness (``chip_smoke.phase_core_witness``: two crop
+    shapes, four starts each), then five graphed solves of five 48 x 40 x 56
+    crops, every call held against its witness (``chip_smoke.
+    witness_fresh``): a solve key's eager first sighting, its capture and a
+    replay on other inputs, then those inputs at another ``cg_tol`` and in
+    the split form, each its own key."""
     from vittf_tpu_torch.ops import bilateral
+
+    cores = cs.phase_core_witness(0)
 
     gen = torch.Generator().manual_seed(0)
     shape = (cs.BLS_C, 48, 40, 56)
@@ -434,13 +484,13 @@ def _check_graphs(cs, torch):
         return [x.to("cuda") for x in (torch.rand(shape, generator=gen), lu,
                                        torch.rand(shape, generator=gen))]
 
-    a, b = planes(), planes()
+    a, b, c = planes(), planes(), planes()
     kw = dict(sigma_spatial=cs.BLS_SS, sigma_luma=cs.BLS_SL)
     held = cs.witness_fresh("graph check", *(
         functools.partial(bilateral.bilateral_solve_gray_batched, *x, **k)
-        for x, k in ((a, kw), (b, kw), (b, {**kw, "cg_tol": 0.1}),
-                     (b, {**kw, "pixel_impl": "reblock"}))))
-    return f"held {held}"
+        for x, k in ((a, kw), (b, kw), (c, kw), (b, {**kw, "cg_tol": 0.1}),
+                     (c, {**kw, "pixel_impl": "reblock"}))))
+    return f"refine cores held {cores}, solves held {held}"
 
 
 def run_graph_faults(cs, torch) -> list:
@@ -448,12 +498,11 @@ def run_graph_faults(cs, torch) -> list:
     ``_check_graphs``; returns whether each fault passed."""
     from unittest import mock
 
-    from vittf_tpu_torch.ops import bilateral
-
     verdicts = []
     for name, owner, attr, value in [("control: no patch", None, None, None)] + GRAPH_FAULTS:
-        patch = (mock.patch.object(owner(bilateral), attr, value(bilateral)) if owner
-                 else contextlib.nullcontext())
+        target = owner and _owner(owner)
+        patch = (mock.patch.object(target, attr, value(_owner(owner.partition(":")[0])))
+                 if owner else contextlib.nullcontext())
         try:
             with patch:
                 out = _check_graphs(cs, torch)
@@ -464,7 +513,7 @@ def run_graph_faults(cs, torch) -> list:
             passed = False
         if owner:
             verdicts.append(passed)
-    bilateral._GRAPHS.clear()
+    cs.GRAPHS.clear()
     return verdicts
 
 
