@@ -31,7 +31,7 @@ def test_port_imports_no_jax():
         "        'convert.volumes', 'cli.convert', 'cli.batch', 'cli.evaluate', 'cli.predict_svm_rf',\n"
         "        'pipeline.baselines', 'pipeline.compare_sampling', 'pipeline.merge', 'pipeline.tiling',\n"
         "        'ops.query', 'ops.bilateral_sparse', 'models.clip', 'utils.logging', 'utils.flops',\n"
-        "        'core.rle', 'core.config', 'utils.polygon', 'utils.timer', 'pipeline.reporting',\n"
+        "        'core.rle', 'core.config', 'utils.polygon', 'pipeline.reporting',\n"
         "        'pipeline.visualize', 'models.serialization', 'core.synthetic', 'cli.synth',\n"
         "        'cli.convert_weights', 'models.cnn3d', 'train.utils', 'train.losses',\n"
         "        'train.gather', 'train.moco', 'train.probe', 'train.optim', 'train.contrastive',\n"
@@ -51,8 +51,8 @@ def test_port_imports_no_jax():
 # the jax-free host modules the port keeps as copies: the same text but for
 # the package name (and, in rle.py, a machine path in the docstring, which the
 # copy gives relative to the reference's tree)
-VERBATIM = ["core/rle.py", "core/config.py", "utils/polygon.py", "utils/timer.py",
-            "utils/flops.py", "pipeline/reporting.py", "pipeline/visualize.py"]
+VERBATIM = ["core/rle.py", "core/config.py", "utils/polygon.py", "utils/flops.py",
+            "pipeline/reporting.py", "pipeline/visualize.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

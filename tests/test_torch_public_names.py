@@ -21,6 +21,9 @@ EXCEPTIONS = {
                                 "params_from_jax / params_to_jax convert)",
     "vit_forward": "a method of the port's VisionTransformer",
     "vit_forward_raw": "a method of the port's VisionTransformer",
+    "Timer": "no twin: the port's stage timer timed the enqueue and had no reader; its "
+             "profiler spans are utils.logging.span",
+    "StageTimings": "no twin: as Timer",
 }
 PACKAGES = sorted(str(p.parent.relative_to(REPO / "vittf_tpu")).replace("/", ".")
                   for p in (REPO / "vittf_tpu").rglob("__init__.py"))

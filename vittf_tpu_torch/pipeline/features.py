@@ -27,6 +27,7 @@ from vittf_tpu_torch.ops.resize import (
     adaptive_avg_pool,
     resize_nearest,
 )
+from vittf_tpu_torch.utils.logging import span
 from vittf_tpu_torch.utils.tensor import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -221,8 +222,9 @@ def _axis_pool(S, o_ax, pool, slice_subsample, device):
         return _subsample_slice_indices(S, o_ax), None, o_ax  # one slice per slot
     if S == o_ax:
         return None, None, o_ax  # adaptive-pool windows are singletons
-    w_pool = torch.as_tensor(_adaptive_avg_weight_matrix(S, o_ax), dtype=torch.float32,
-                             device=device)
+    w_pool = torch.from_numpy(_adaptive_avg_weight_matrix(S, o_ax)).float()
+    with span("sync.pool"):
+        w_pool = w_pool.to(device)
     return None, w_pool, o_ax
 
 
@@ -254,17 +256,18 @@ def _accumulate(model, batches, acc, w_pool, img_hw, f_hw, key_idx, cfg, mima):
     device, or None for the identity (slice i is output slot i).
     """
     for s0, batch in batches:
-        fks = _slice_batch_features(
-            model, batch, img_hw, f_hw, key_idx, cfg.precision, cfg.attn_impl,
-            cfg.block_impl, mima, cfg.feature_source,
-        )
-        for a, fk in zip(acc, fks):
-            nb = fk.shape[0]
-            if w_pool is None:
-                a[s0:s0 + nb] = fk
-            else:
-                # acc += w[:, batch] · fk, in place (fp32 GEMM, no TF32)
-                a.view(a.shape[0], -1).addmm_(w_pool[:, s0:s0 + nb], fk.reshape(nb, -1))
+        with span("features.batch"):
+            fks = _slice_batch_features(
+                model, batch, img_hw, f_hw, key_idx, cfg.precision, cfg.attn_impl,
+                cfg.block_impl, mima, cfg.feature_source,
+            )
+            for a, fk in zip(acc, fks):
+                nb = fk.shape[0]
+                if w_pool is None:
+                    a[s0:s0 + nb] = fk
+                else:
+                    # acc += w[:, batch] · fk, in place (fp32 GEMM, no TF32)
+                    a.view(a.shape[0], -1).addmm_(w_pool[:, s0:s0 + nb], fk.reshape(nb, -1))
     return acc
 
 
@@ -347,31 +350,36 @@ def extract_features(
 def _extract(vol, params, model_cfg, cfg, device, select=None, reduce=None):
     """``extract_features``, each sweep over the slice batches ``select``
     picks, its accumulators combined by ``reduce`` (``_extract_axis``)."""
-    _check_block_impl(cfg.block_impl)
-    if cfg.feature_source not in ("qkv", "mlp"):
-        raise ValueError(f"unknown feature_source: {cfg.feature_source!r}")
-    device = resolve_device(device)
-    if not torch.is_tensor(vol):
-        vol = torch.from_numpy(np.ascontiguousarray(vol))
-    if vol.dtype not in _KEEP_DTYPES:
-        vol = vol.float()
-    vol = vol.to(device)
-    im_sz, feat_out_sz = compute_im_sizes(
-        tuple(vol.shape[-3:]), cfg.feature_output_size, model_cfg.patch_size
-    )
-    model = _build_model(params, model_cfg, cfg.compute_dtype, device, vol.ndim == 3)
-    mima = (vol.min().float(), vol.max().float())
-    if cfg.slice_subsample:
-        vol = _predecimate_fast_input(vol, im_sz, feat_out_sz)
-
-    axes = ["z", "y", "x"] if cfg.slice_along == "all" else [cfg.slice_along]
-    out: dict[str, torch.Tensor] = {}
-    for ax in axes:
-        axis_feats = _extract_axis(
-            model, vol, mima, model_cfg, cfg, ax, im_sz, feat_out_sz, select, reduce
+    with span("features.extract"):
+        _check_block_impl(cfg.block_impl)
+        if cfg.feature_source not in ("qkv", "mlp"):
+            raise ValueError(f"unknown feature_source: {cfg.feature_source!r}")
+        device = resolve_device(device)
+        if not torch.is_tensor(vol):
+            vol = torch.from_numpy(np.ascontiguousarray(vol))
+        if vol.dtype not in _KEEP_DTYPES:
+            vol = vol.float()
+        with span("sync.volume"):  # a copy only where the volume lies elsewhere
+            vol = vol.to(device)
+        im_sz, feat_out_sz = compute_im_sizes(
+            tuple(vol.shape[-3:]), cfg.feature_output_size, model_cfg.patch_size
         )
-        for k, v in axis_feats.items():
-            if cfg.slice_along == "all":
-                v = _pool_to(v, feat_out_sz)  # common grid before summing
-            out[k] = v if k not in out else out[k] + v
-    return out
+        with span("features.build_model"):
+            model = _build_model(params, model_cfg, cfg.compute_dtype, device, vol.ndim == 3)
+        mima = (vol.min().float(), vol.max().float())
+        if cfg.slice_subsample:
+            vol = _predecimate_fast_input(vol, im_sz, feat_out_sz)
+
+        axes = ["z", "y", "x"] if cfg.slice_along == "all" else [cfg.slice_along]
+        out: dict[str, torch.Tensor] = {}
+        for ax in axes:
+            with span("features.axis"):
+                axis_feats = _extract_axis(
+                    model, vol, mima, model_cfg, cfg, ax, im_sz, feat_out_sz, select, reduce
+                )
+            with span("features.merge"):
+                for k, v in axis_feats.items():
+                    if cfg.slice_along == "all":
+                        v = _pool_to(v, feat_out_sz)  # common grid before summing
+                    out[k] = v if k not in out else out[k] + v
+        return out

@@ -22,6 +22,7 @@ from vittf_tpu_torch.ops.similarity import (
     class_mean_matrix,
     fused_similarity_m,
 )
+from vittf_tpu_torch.utils.logging import span
 
 # CT-ORG fusion operating point (predict_ntf.py:207-208)
 CT_ORG_THRESHOLDS = [0.486, 0.264, 0.236, 0.68, 0.291]
@@ -55,14 +56,17 @@ def _raw_similarities(
     """Float (C, W', H', D') similarities on the feature grid."""
     feat_dims = tuple(features.shape[-3:])
     F_dim = features.shape[0]
-    rel = rel_coords_from_abs(abs_coords, in_dims)
-    qf = sample_features3d(features, rel, mode="bilinear")[0, 0].contiguous()  # (A_pad, F)
-    feats_flat = torch.movedim(features, 0, -1).reshape(-1, F_dim).contiguous()
+    with span("ntf.sample"):
+        rel = rel_coords_from_abs(abs_coords, in_dims)
+        qf = sample_features3d(features, rel, mode="bilinear")[0, 0].contiguous()  # (A_pad, F)
+    with span("ntf.layout"):
+        feats_flat = torch.movedim(features, 0, -1).reshape(-1, F_dim).contiguous()
     # class-major layout: the (C, N) result is already in volume order
-    sims_cn = fused_similarity_m(
-        feats_flat, qf, class_mat, threshold=threshold, exponent=exponent,
-        mean_first=mean_first, impl=impl, out_layout="cn",
-    )
+    with span("ntf.k2"):
+        sims_cn = fused_similarity_m(
+            feats_flat, qf, class_mat, threshold=threshold, exponent=exponent,
+            mean_first=mean_first, impl=impl, out_layout="cn",
+        )
     return sims_cn.reshape(class_mat.shape[1], *feat_dims)
 
 
@@ -74,10 +78,11 @@ def _similarities(in_dims, features, abs_coords, class_mat, sim_shape, threshold
     feat_dims = tuple(sims.shape[-3:])
     # per-class 0.99·max quantization + nearest resize (predict_ntf.py:95-100),
     # clamped so all-zero classes quantize to 0 instead of NaN
-    quant = torch.clamp(0.99 * sims.amax(dim=(1, 2, 3), keepdim=True), min=1e-30)
-    sims_u8 = quantize_uint8_torch(255.0 / quant * sims)
-    if feat_dims != sim_shape:
-        sims_u8 = resize_nearest(sims_u8, sim_shape)
+    with span("ntf.quantize"):
+        quant = torch.clamp(0.99 * sims.amax(dim=(1, 2, 3), keepdim=True), min=1e-30)
+        sims_u8 = quantize_uint8_torch(255.0 / quant * sims)
+        if feat_dims != sim_shape:
+            sims_u8 = resize_nearest(sims_u8, sim_shape)
     return sims_u8
 
 
@@ -139,19 +144,22 @@ def compute_similarities(
     if mean_first is None:
         mean_first = len(annotations) == 1 and counts[0] > 1024
 
-    abs_np = np.concatenate(
-        [np.asarray(v) for v in annotations.values()], axis=0
-    ).astype(np.float32)
-    # pad the annotation axis to a bucket; zero mean-matrix rows make it exact
-    apad = _bucket_annotations(abs_np.shape[0])
-    coords_p = np.zeros((apad, 3), np.float32)
-    coords_p[: abs_np.shape[0]] = abs_np
-    m = class_mean_matrix(list(counts), apad)
+    with span("ntf.pack"):
+        abs_np = np.concatenate(
+            [np.asarray(v) for v in annotations.values()], axis=0
+        ).astype(np.float32)
+        # pad the annotation axis to a bucket; zero mean-matrix rows make it exact
+        apad = _bucket_annotations(abs_np.shape[0])
+        coords_p = np.zeros((apad, 3), np.float32)
+        coords_p[: abs_np.shape[0]] = abs_np
+        m = class_mean_matrix(list(counts), apad)
 
-    # one upload of both: the padded coordinates, then the mean matrix
-    packed = torch.from_numpy(np.concatenate([coords_p.ravel(), m.ravel()])).to(features.device)
-    coords_t = packed[:coords_p.size].view(coords_p.shape)
-    m_t = packed[coords_p.size:].view(m.shape)
+        # one upload of both: the padded coordinates, then the mean matrix
+        packed = torch.from_numpy(np.concatenate([coords_p.ravel(), m.ravel()]))
+        with span("sync.upload"):
+            packed = packed.to(features.device)
+        coords_t = packed[:coords_p.size].view(coords_p.shape)
+        m_t = packed[coords_p.size:].view(m.shape)
     if not bilateral_solver:
         sims_u8 = _similarities(in_dims, features, coords_t, m_t, sim_shape, threshold,
                                 exponent, mean_first, impl)
@@ -190,15 +198,16 @@ def fuse_predictions(
     best previous class (max-sim tie-break); labels are 1-based, 0 =
     background. Thresholds beyond the provided list fall back to 0.25.
     """
-    sims = torch.stack(list(similarities.values()))
-    ths = list(thresholds) + [DEFAULT_THRESHOLD] * max(0, sims.shape[0] - len(thresholds))
-    pred = torch.zeros(sims.shape[1:], dtype=torch.uint8, device=sims.device)
-    pred_vals = torch.zeros(sims.shape[1:], dtype=sims.dtype, device=sims.device)
-    for i in range(sims.shape[0]):
-        sim = sims[i]
-        mask = (sim > int(float(ths[i]) * 255)) & (sim > pred_vals)
-        pred = torch.where(mask, torch.full_like(pred, i + 1), pred)
-        pred_vals = torch.where(mask, sim, pred_vals)
+    with span("ntf.fuse"):
+        sims = torch.stack(list(similarities.values()))
+        ths = list(thresholds) + [DEFAULT_THRESHOLD] * max(0, sims.shape[0] - len(thresholds))
+        pred = torch.zeros(sims.shape[1:], dtype=torch.uint8, device=sims.device)
+        pred_vals = torch.zeros(sims.shape[1:], dtype=sims.dtype, device=sims.device)
+        for i in range(sims.shape[0]):
+            sim = sims[i]
+            mask = (sim > int(float(ths[i]) * 255)) & (sim > pred_vals)
+            pred = torch.where(mask, torch.full_like(pred, i + 1), pred)
+            pred_vals = torch.where(mask, sim, pred_vals)
     return pred
 
 

@@ -46,6 +46,7 @@ from vittf_tpu_torch.ops.morphology import filter_sobel_separated
 from vittf_tpu_torch.ops.resize import resize_linear
 from vittf_tpu_torch.pipeline.ntf import quantize_uint8_torch
 from vittf_tpu_torch.utils import cuda_graphs
+from vittf_tpu_torch.utils.logging import span
 from vittf_tpu_torch.utils.tensor import make_5d, norm_minmax
 
 BLS_GRID_PARAMS = {  # predict_ntf.py:75-79
@@ -261,35 +262,40 @@ def refine_similarities_batched(sims: torch.Tensor, volume, sim_shape: tuple[int
     vol_u8 = ref_u8 if ref_u8 is not None else make_bls_reference(
         volume, sim_shape, device=sims.device)
     C = sims.shape[0]
-    sims, boxes_d, nonempty_d = _prep_boxes_device(sims, tuple(sim_shape), 0.1)
-    boxes, nonempty = boxes_d.cpu().numpy(), nonempty_d.cpu().numpy()
-    if not nonempty.any():
-        # nothing to refine: quantized zero maps (255/(0.99·0) clamped)
-        return torch.zeros((C,) + tuple(sim_shape), dtype=torch.uint8, device=sims.device)
-    mi = np.clip(boxes[:, 0] - 2, 0, None)  # pad=2, crop_pad parity
-    ma = np.minimum(boxes[:, 1] + 2, np.asarray(sim_shape))
-    ext = np.max((ma - mi)[nonempty], axis=0)
-    ext = tuple(int(e) for e in np.minimum(-(-ext // shape_bucket) * shape_bucket, sim_shape))
-    # per-class starts, made on the device from its boxes (no upload): the
-    # padded box's start, shifted back where the common box would overflow;
-    # empty classes solve a corner crop of zeros (writes zeros back)
-    starts = torch.stack([(boxes_d[:, 0, d] - 2).clamp(0, sim_shape[d] - ext[d])
-                          for d in range(3)], dim=1)
-    starts = torch.where(nonempty_d[:, None], starts, 0)
-    c2f = bs.get("coarse_to_fine")
-    if c2f is None:
-        c2f = os.environ.get("VITTF_BLS_COARSE", "0") != "0"
-    solve_kw = dict(
-        sigma_spatial=int(gp["sigma_spatial"]),
-        sigma_luma=int(gp["sigma_luma"]),
-        lam=float(bs.get("lam", 256.0)),
-        cg_maxiter=int(bs.get("cg_maxiter", 25)),
-        coarse_to_fine=bool(c2f),
-        fine_maxiter=int(bs.get("fine_maxiter", 10)),
-        pixel_impl=pixel_impl,
-    )
-    budget = int(os.environ.get("VITTF_BLS_CHUNK_VOXELS", 70_000_000))
-    chunk = max(1, budget // max(1, int(np.prod(ext))))
+    with span("refine.boxes"):
+        sims, boxes_d, nonempty_d = _prep_boxes_device(sims, tuple(sim_shape), 0.1)
+        with span("sync.boxes"):
+            boxes = boxes_d.cpu().numpy()
+        with span("sync.nonempty"):
+            nonempty = nonempty_d.cpu().numpy()
+    with span("refine.plan"):
+        if not nonempty.any():
+            # nothing to refine: quantized zero maps (255/(0.99·0) clamped)
+            return torch.zeros((C,) + tuple(sim_shape), dtype=torch.uint8, device=sims.device)
+        mi = np.clip(boxes[:, 0] - 2, 0, None)  # pad=2, crop_pad parity
+        ma = np.minimum(boxes[:, 1] + 2, np.asarray(sim_shape))
+        ext = np.max((ma - mi)[nonempty], axis=0)
+        ext = tuple(int(e) for e in np.minimum(-(-ext // shape_bucket) * shape_bucket, sim_shape))
+        # per-class starts, made on the device from its boxes (no upload): the
+        # padded box's start, shifted back where the common box would overflow;
+        # empty classes solve a corner crop of zeros (writes zeros back)
+        starts = torch.stack([(boxes_d[:, 0, d] - 2).clamp(0, sim_shape[d] - ext[d])
+                              for d in range(3)], dim=1)
+        starts = torch.where(nonempty_d[:, None], starts, 0)
+        c2f = bs.get("coarse_to_fine")
+        if c2f is None:
+            c2f = os.environ.get("VITTF_BLS_COARSE", "0") != "0"
+        solve_kw = dict(
+            sigma_spatial=int(gp["sigma_spatial"]),
+            sigma_luma=int(gp["sigma_luma"]),
+            lam=float(bs.get("lam", 256.0)),
+            cg_maxiter=int(bs.get("cg_maxiter", 25)),
+            coarse_to_fine=bool(c2f),
+            fine_maxiter=int(bs.get("fine_maxiter", 10)),
+            pixel_impl=pixel_impl,
+        )
+        budget = int(os.environ.get("VITTF_BLS_CHUNK_VOXELS", 70_000_000))
+        chunk = max(1, budget // max(1, int(np.prod(ext))))
     if chunk >= C:
         return _refine_core(sims, vol_u8, starts, ext, solve_kw)
     n_pad = -C % chunk

@@ -29,6 +29,7 @@ from vittf_tpu_torch.pipeline.ntf import (
     fuse_predictions,
     fuse_predictions_host,
 )
+from vittf_tpu_torch.utils.logging import span
 from vittf_tpu_torch.utils.tensor import resolve_device as _resolve_device
 
 
@@ -71,6 +72,9 @@ class InteractiveSession:
         self.dirty_tracking = dirty_tracking
         self._last_annotations: dict[str, np.ndarray] = {}
         self.similarities: dict[str, torch.Tensor] = {}
+        # updates served so far: the identifier an update's and the next
+        # predict's profiler spans carry
+        self.updates = 0
         # export host cache: name -> (the device tensor it was fetched from,
         # its host copy). Unchanged classes keep the same tensor object across
         # dirty updates, so their cached host bytes are exact and an export
@@ -150,6 +154,11 @@ class InteractiveSession:
         which stays within that path's documented not-bit-parity envelope
         (``refine_similarities_batched``).
         """
+        self.updates += 1
+        with span("session.update", self.updates):
+            return self._update(annotations)
+
+    def _update(self, annotations: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         ann_np = {k: np.asarray(v) for k, v in annotations.items()}
         total = sum(int(v.shape[0]) for v in ann_np.values())
         if not ann_np:
@@ -157,15 +166,16 @@ class InteractiveSession:
             self.similarities = {}
             return self.similarities
 
-        if self.dirty_tracking and self.similarities:
-            dirty = [
-                k for k, v in ann_np.items()
-                if k not in self.similarities
-                or k not in self._last_annotations
-                or not np.array_equal(v, self._last_annotations[k])
-            ]
-        else:
-            dirty = list(ann_np)
+        with span("session.dirty"):
+            if self.dirty_tracking and self.similarities:
+                dirty = [
+                    k for k, v in ann_np.items()
+                    if k not in self.similarities
+                    or k not in self._last_annotations
+                    or not np.array_equal(v, self._last_annotations[k])
+                ]
+            else:
+                dirty = list(ann_np)
 
         sims = {k: self.similarities[k] for k in ann_np if k not in dirty}
         dirty_nonzero = {k: ann_np[k] for k in dirty if ann_np[k].shape[0] > 0}
@@ -195,8 +205,9 @@ class InteractiveSession:
     def predict(self, thresholds=None) -> torch.Tensor:
         if not self.similarities:
             raise RuntimeError("No similarities yet — call update_annotations first")
-        return fuse_predictions(
-            self.similarities, thresholds or _default_thresholds(len(self.similarities)))
+        with span("session.predict", self.updates):
+            return fuse_predictions(
+                self.similarities, thresholds or _default_thresholds(len(self.similarities)))
 
     def export(self, data_dir: str | Path) -> None:
         """Write similarities + predictions per the artifact contract
@@ -208,7 +219,10 @@ class InteractiveSession:
         The fused prediction is computed on the host from those bytes
         (``fuse_predictions_host``, bit-identical to the device fuse), so a
         one-class edit copies exactly one map."""
-        data_dir = Path(data_dir)
+        with span("session.export"):
+            self._export(Path(data_dir))
+
+    def _export(self, data_dir: Path) -> None:
         names = list(self.similarities)
         if not names:  # cleared annotations: serve empty + background
             self._export_cache.clear()
@@ -220,7 +234,9 @@ class InteractiveSession:
             if self._export_cache.get(n, (None,))[0] is not self.similarities[n]
         ]
         if fetch:
-            stacked = torch.stack([self.similarities[n] for n in fetch]).cpu().numpy()
+            stacked = torch.stack([self.similarities[n] for n in fetch])
+            with span("sync.export"):
+                stacked = stacked.cpu().numpy()
             for i, n in enumerate(fetch):
                 self._export_cache[n] = (self.similarities[n], stacked[i])
         # drop classes that no longer exist (the cache would keep their

@@ -32,7 +32,10 @@ error raises: there is no eager fallback and no switch.
 
 Launch counters: a wrapper counts its launches where it launches. A capture
 launches nothing, so ``uncounted`` sets the counters back and keeps the
-deltas, which each replay adds once.
+deltas, which each replay adds once. Under a running profiler each call is
+one span of its branch, ``vittf.graph.eager``, ``.capture`` or ``.replay``
+(``utils/logging.py::span``), so a trace shows what a capture costs where
+it happens.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ import dataclasses
 import threading
 
 import torch
+
+from vittf_tpu_torch.utils.logging import span
 
 GRAPH_BOUND = 8  # captured graphs kept per process
 GRAPH_BUDGET_SHARE = 0.25  # of the card's memory, held by the kept graphs' pools and buffers
@@ -131,24 +136,27 @@ class GraphCache:
         if entry is not None:
             self.hits += 1
             self.entries.move_to_end(key)
-            return entry(*args)
+            with span("graph.replay"):
+                return entry(*args)
         seen = self.sightings.pop(key, None)
         if seen is None or seen == _EAGER_ONLY:
             self._sight(key, seen or _SEEN)
             self.eager += 1
-            return eager(*args)
+            with span("graph.eager"):
+                return eager(*args)
         self.misses += 1
-        self._evict(self.bound - 1, budget)  # room first, for the capture's own pool
-        entry = make(*args)
-        if entry.nbytes > budget:
-            self._sight(key, _EAGER_ONLY)
-            out = entry(*args)  # its one replay
-            del entry
-            _release()
-            return out
-        self.entries[key] = entry
-        self._evict(self.bound, budget)
-        return entry(*args)
+        with span("graph.capture"):
+            self._evict(self.bound - 1, budget)  # room first, for the capture's own pool
+            entry = make(*args)
+            if entry.nbytes > budget:
+                self._sight(key, _EAGER_ONLY)
+                out = entry(*args)  # its one replay
+                del entry
+                _release()
+                return out
+            self.entries[key] = entry
+            self._evict(self.bound, budget)
+            return entry(*args)
 
     def clear(self) -> None:
         self.entries.clear()
