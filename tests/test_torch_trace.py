@@ -84,8 +84,7 @@ def _session(bilateral_solver, **kw):
 
 EDIT_HEAD = [("session.update", None), ("session.dirty", "session.update"),
              ("ntf.pack", "session.update"), ("sync.upload", "ntf.pack"),
-             ("ntf.sample", "session.update"), ("ntf.layout", "session.update"),
-             ("ntf.k2", "session.update")]
+             ("ntf.sample", "session.update"), ("ntf.k2", "session.update")]
 EDIT_TAIL = [("session.predict", None), ("ntf.fuse", "session.predict")]
 EDIT_TREES = {
     "plain": (dict(bilateral_solver=False),

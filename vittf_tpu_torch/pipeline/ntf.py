@@ -59,8 +59,12 @@ def _raw_similarities(
     with span("ntf.sample"):
         rel = rel_coords_from_abs(abs_coords, in_dims)
         qf = sample_features3d(features, rel, mode="bilinear")[0, 0].contiguous()  # (A_pad, F)
-    with span("ntf.layout"):
-        feats_flat = torch.movedim(features, 0, -1).reshape(-1, F_dim).contiguous()
+    rows = torch.movedim(features, 0, -1)  # (W', H', D', F)
+    if rows.is_contiguous():  # voxel-major features, as a session holds them
+        feats_flat = rows.reshape(-1, F_dim)
+    else:  # feature-major: one copy into the (V, F) rows
+        with span("ntf.layout"):
+            feats_flat = rows.reshape(-1, F_dim).contiguous()
     # class-major layout: the (C, N) result is already in volume order
     with span("ntf.k2"):
         sims_cn = fused_similarity_m(

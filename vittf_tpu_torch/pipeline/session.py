@@ -59,7 +59,12 @@ class InteractiveSession:
         self.volume = np.asarray(volume)
         if not torch.is_tensor(features):
             features = torch.from_numpy(np.asarray(features, np.float32))
-        self.features = features.to(self.device, torch.float32)
+        # held voxel-major: (F, W', H', D') in shape, (W', H', D', F) in
+        # memory, so that every request's similarity kernel reads its (V, F)
+        # rows in place and the sampler walks the channels contiguously. One
+        # transposing copy here, none per edit.
+        features = features.to(self.device, torch.float32)
+        self.features = features.movedim(0, -1).contiguous().movedim(-1, 0)
         self.bilateral_solver = bilateral_solver
         self.impl = impl
         self.bls_shape_bucket = bls_shape_bucket
