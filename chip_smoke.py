@@ -90,6 +90,17 @@ quality harness and the multi-device layer. Phases:
    ``cli/train.py --trainer paws --iterations 4`` with checkpoints, and
    again with ``--iterations 8 --resume`` (the log goes on at step 5,
    checkpoints at 2, 4, 6, 8);
+5e. SwiGLU gate (K10, ``phase_swiglu``) at the ViT-g/14 cell's launch,
+   (32 928, 8192) bf16, and at ragged shapes (rows 1, 7, 129; widths 8, 24,
+   1544; a (2, 1029, 2H) batch), output poisoned with NaN first: bit-equal
+   to the plain twin run on the card's tensors and to its repeat, within one
+   bf16 step of the twin on CPU tensors (the host's exp may differ in the
+   last fp32 bit); timed ten calls an event pair beside its 6·M·H-byte
+   bound, the twin and ``F.silu(x1) * x2``; then the path
+   (``phase_swiglu_path``): ViT-g/14-reg at full width and three blocks
+   through ``extract_features`` on a 64³ phantom (448² slices, 1029 tokens,
+   batch 32: 12 gate launches), kernels vs plain twins at the bf16
+   block-stack contract, and ``block_impl='fused'`` refused before a launch;
 6. main path: ``infer`` on a 128³ phantom, ``predict_ntf``, three requests;
    the attention and similarity launch counters must have risen;
 7. fused path: ``infer --block-impl fused`` on the same volume (528 fused
@@ -277,6 +288,7 @@ from vittf_tpu_torch.ops.fused_block import (
     launch_kernel,
 )
 from vittf_tpu_torch.ops.similarity import class_mean_matrix, similarity, similarity_plain
+from vittf_tpu_torch.ops.swiglu import swiglu, swiglu_plain
 from vittf_tpu_torch.pipeline.annotations import annotations_from_labels
 from vittf_tpu_torch.core.synthetic import make_multiclass_volume
 from vittf_tpu_torch.models.cnn3d import (
@@ -323,6 +335,7 @@ from vittf_tpu_torch.utils import cuda_graphs
 from vittf_tpu_torch.utils.tensor import ieee_matmul
 
 ATTN_SHAPE = (8, 6, 4097, 64)  # vits8 at fos 64: 8 slices, 6 heads, 64²+1 tokens
+SWIGLU_SHAPE = (32 * 1029, 2 * 4096)  # ViT-g/14-reg's w12 output: batch 32 of 32²+5 tokens
 BLOCK_SHAPE = (8, 4097, 384)  # the same slice batch as tokens of width D
 LOUD_PEAK, K_SHIFT = 4.0, 80.0  # loud_params' Wq/Wk scale; the row-max case's k-bias scale
 SIM_N, SIM_F, SIM_PER_CLASS, SIM_C = 64**3, 384, 256, 5
@@ -2168,6 +2181,76 @@ def phase_fast(seed, workdir: Path):
           f"init); peak memory allocated {peak} GiB")
 
 
+def phase_swiglu(gen):
+    """K10 against its plain twin: bit-equal on the card's tensors (silu and
+    the product in fp32, one rounding to bf16, as the twin), to its repeat,
+    with the output poisoned first; within one bf16 step (2^-7 relative) of
+    the twin on CPU tensors, whose exp may round its last fp32 bit
+    otherwise. x is drawn at 3σ so silu sees its whole range."""
+    cases = [SWIGLU_SHAPE, (1, 16), (7, 48), (129, 2 * 1544), (2, 1029, 2 * 4096)]
+    for shape in cases:
+        x = (3 * torch.randn(shape, generator=gen)).to("cuda", torch.bfloat16)
+        out_shape = (*shape[:-1], shape[-1] // 4)  # fp32 of the bf16 output's bytes
+        got = poisoned(lambda: swiglu(x), out_shape)
+        name = f"swiglu {tuple(shape)}"
+        assert_equal(f"{name} vs the twin on the card", got, swiglu_plain(x))
+        assert_equal(f"{name}: repeat", poisoned(lambda: swiglu(x), out_shape), got)
+        host = swiglu_plain(x.cpu())
+        err = check_close(f"{name} vs the twin on CPU tensors", got.cpu(), host, 2**-7, 0.0)
+        print(f"{name}: equal to the twin on the card and to its repeat; max_abs_err to the "
+              f"CPU twin {err}, {int((got.cpu() != host).sum())} of {host.numel()} differ")
+    x = (3 * torch.randn(SWIGLU_SHAPE, generator=gen)).to("cuda", torch.bfloat16)
+    M, H = SWIGLU_SHAPE[0], SWIGLU_SHAPE[1] // 2
+    x1, x2 = x.chunk(2, dim=-1)
+    ms = ten_call_ms(lambda: swiglu(x))
+    plain_ms = ten_call_ms(lambda: swiglu_plain(x))
+    # the yardstick: one PyTorch expression on the same halves, used nowhere in the port
+    lib_ms = ten_call_ms(lambda: torch.nn.functional.silu(x1) * x2)
+    nbytes = 6 * M * H
+    print(f"swiglu {SWIGLU_SHAPE} bfloat16: kernel {ms} ms ({nbytes / ms / 1e9} GB/s), "
+          f"bound {nbytes / HBM_BYTES_PER_S * 1e3} ms; plain {plain_ms} ms; "
+          f"F.silu(x1) * x2 {lib_ms} ms")
+    return kernel_entry(0.0, ms, plain_ms, nbytes=nbytes, ops=0, peak="bf16", library_ms=lib_ms)
+
+
+def phase_swiglu_path(seed):
+    """ViT-g/14-reg at full width with three blocks (LayerScale gammas at 1,
+    so every block reaches the output) through ``extract_features`` on a
+    64³ phantom: 448² slices of 1029 tokens, 6 batches of 32, two whole
+    blocks each: 12 gate launches; kernels vs plain twins (both bf16) at the
+    bf16 block-stack contract of ``phase_consistency``; the fused block
+    refused. Returns the gate's launches."""
+    cfg = dataclasses.replace(resolve_model(dino2_model="vitg14_reg"), depth=3)
+    params = init_vit_params(cfg, (0, seed))
+    params = {k: torch.ones_like(v) if k.endswith(".gamma") else v for k, v in params.items()}
+    vol, _ = phantom(64, seed + 11)
+    feats, before = {}, swiglu.launches
+    for impl in ("auto", "plain"):
+        ex = ExtractConfig(feature_output_size=32, batch_size=32, compute_dtype="bfloat16",
+                           attn_impl=impl)
+        t0 = time.perf_counter()
+        feats[impl] = extract_features(vol, params, cfg, ex, device="cuda")["k"]
+        torch.cuda.synchronize()
+        print(f"ViT-g/14-reg x 3 blocks on 64^3 ({impl}): {time.perf_counter() - t0} s")
+    launches = swiglu.launches - before
+    if launches != 12:
+        raise AssertionError(f"swiglu launched {launches} times on the path, not 12")
+    got, want = feats["auto"], feats["plain"]
+    if tuple(got.shape) != (1536, 32, 32, 32):
+        raise AssertionError(f"ViT-g/14-reg extraction shape {tuple(got.shape)}")
+    err = check_rel("ViT-g/14-reg extraction kernels vs plain", got, want, 0.02)
+    print(f"ViT-g/14-reg extraction kernels vs plain: max_abs_err {err} (limit "
+          f"{0.02 * want.abs().max().item()}); {launches} gate launches")
+    try:
+        extract_features(vol, params, cfg, ExtractConfig(compute_dtype="bfloat16",
+                                                         block_impl="fused"), device="cuda")
+    except ValueError as e:
+        print(f"block_impl='fused' refused for SwiGLU: {e}")
+    else:
+        raise AssertionError("block_impl='fused' ran a SwiGLU model")
+    return launches
+
+
 def phase_consistency(seed):
     cfg = resolve_model("vits8")
     params = init_vit_params(cfg, (0, seed))
@@ -3290,6 +3373,8 @@ def main() -> int:
     entries.update(phase_bilateral(gen))
     entries["fused_block"] = phase_fused_block(gen)
     entries["chain_gemm"] = phase_chain_gemm()
+    entries["swiglu"] = phase_swiglu(gen)
+    n_swiglu = phase_swiglu_path(args.seed)
     n_k9 = phase_probe_path()
     phase_baselines(args.seed)
     phase_foundations(args.seed)
@@ -3331,6 +3416,7 @@ def main() -> int:
         ("bls_slice_blocked", "bilateral_reblock.cu", "vittf_tpu/ops/bilateral.py:279",
          n_blocked[3]),
         ("chain_gemm", "chain_gemm.cu", "scripts/bench_int8_gemm.py:60", n_k9),
+        ("swiglu", "swiglu.cu", "none (DINOv2's SwiGLU gate)", n_swiglu),
     ]
     if min(n for *_, n in kernel_list) == 0:
         raise AssertionError(f"a kernel was launched no time on its path: {kernel_list}")

@@ -133,10 +133,28 @@ def test_forward_bf16_speed_mode(tiny_pair):
         assert err <= 0.05 * np.abs(want).max(), (err, np.abs(want).max())
 
 
+# The port's fields the JAX package's ViTConfig lacks, at their defaults
+# (DINO v1 and DINOv2 without registers: a GELU MLP, DINO's position rule).
+PORT_ONLY_DEFAULTS = {"ffn": "mlp", "num_register_tokens": 0, "interpolate_antialias": False,
+                      "interpolate_offset": 0.1}
+# ViT-g/14's FFN as published (facebookresearch/dinov2 vit_giant2,
+# ffn_layer='swiglufused': w12 1536 -> 8192, w3 4096 -> 1536), which the port
+# takes from the published model and the JAX package does not hold.
+PUBLISHED_FFN = {"vitg14": {"ffn": "swiglu", "hidden_dim": 4096}}
+
+
 def test_registry_matches_jax():
     for name, cfg in jdino.ALL_ARCHS.items():
-        assert dataclasses.asdict(tdino.ALL_ARCHS[name]) == dataclasses.asdict(cfg)
-        assert tdino.ALL_ARCHS[name].head_dim == 64
+        port = tdino.ALL_ARCHS[name]
+        jax_fields = dataclasses.asdict(cfg)
+        port_fields = dataclasses.asdict(port)
+        assert {k: port_fields[k] for k in jax_fields} == jax_fields, name
+        published = PUBLISHED_FFN.get(name, {})
+        extra = {k: v for k, v in port_fields.items() if k not in jax_fields}
+        assert extra == {**PORT_ONLY_DEFAULTS, **{k: v for k, v in published.items()
+                                                  if k in PORT_ONLY_DEFAULTS}}, name
+        assert port.hidden_dim == published.get("hidden_dim", cfg.hidden_dim), name
+        assert port.head_dim == 64
     assert tdino.resolve_model().name == "vits8"
     assert tdino.resolve_model(dino2_model="vitl14").patch_size == 14
     with pytest.raises(ValueError):

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 DINO_ARCH_NAMES = ["vits16", "vits8", "vitb16", "vitb8"]
-DINO2_ARCH_NAMES = ["vits14", "vitb14", "vitl14", "vitg14"]
+DINO2_ARCH_NAMES = ["vits14", "vitb14", "vitl14", "vitg14", "vitg14_reg"]
 
 
 def handle_output_path(args, model_name: str) -> Path:

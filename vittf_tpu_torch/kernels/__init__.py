@@ -95,6 +95,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vittf_fused_block.restype = i32
     lib.vittf_chain_gemm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
     lib.vittf_chain_gemm.restype = i32
+    lib.vittf_swiglu.argtypes = [vp, vp, ctypes.c_longlong, i32, vp]
+    lib.vittf_swiglu.restype = i32
 
 
 def load_library() -> ctypes.CDLL:

@@ -17,7 +17,10 @@ import torch
 from vittf_tpu_torch.models.vit import ViTConfig
 
 # DINO v1 (facebookresearch/dino): patch 8/16, img_size 224.
-# DINOv2 (facebookresearch/dinov2): patch 14, img_size 518, LayerScale.
+# DINOv2 (facebookresearch/dinov2 hubconf): patch 14, img_size 518, LayerScale;
+# ViT-g/14 (``vit_giant2``) has a SwiGLU FFN of width 4096
+# (``ffn_layer='swiglufused'``); the ``_reg`` models add 4 register tokens and
+# resize the position grid to a size with antialiasing (offset 0).
 DINO_ARCHS = {
     "vits16": ViTConfig(16, 384, 12, 6, name="vits16"),
     "vits8": ViTConfig(8, 384, 12, 6, name="vits8"),
@@ -28,7 +31,11 @@ DINOV2_ARCHS = {
     "vits14": ViTConfig(14, 384, 12, 6, img_size=518, layerscale=True, name="vits14"),
     "vitb14": ViTConfig(14, 768, 12, 12, img_size=518, layerscale=True, name="vitb14"),
     "vitl14": ViTConfig(14, 1024, 24, 16, img_size=518, layerscale=True, name="vitl14"),
-    "vitg14": ViTConfig(14, 1536, 40, 24, img_size=518, layerscale=True, name="vitg14"),
+    "vitg14": ViTConfig(14, 1536, 40, 24, img_size=518, layerscale=True, name="vitg14",
+                        ffn="swiglu"),
+    "vitg14_reg": ViTConfig(14, 1536, 40, 24, img_size=518, layerscale=True,
+                            name="vitg14_reg", ffn="swiglu", num_register_tokens=4,
+                            interpolate_antialias=True, interpolate_offset=0.0),
 }
 ALL_ARCHS = {**DINO_ARCHS, **DINOV2_ARCHS}
 
@@ -52,9 +59,12 @@ def resolve_model(
 def _backbone_keys(cfg: ViTConfig) -> list[str]:
     keys = ["cls_token", "pos_embed", "patch_embed.proj.weight",
             "patch_embed.proj.bias", "norm.weight", "norm.bias"]
+    if cfg.num_register_tokens:
+        keys.append("register_tokens")
+    ffn = ("mlp.w12", "mlp.w3") if cfg.ffn == "swiglu" else ("mlp.fc1", "mlp.fc2")
     for i in range(cfg.depth):
         b = f"blocks.{i}"
-        for name in ("norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2"):
+        for name in ("norm1", "norm2", "attn.qkv", "attn.proj", *ffn):
             keys += [f"{b}.{name}.weight", f"{b}.{name}.bias"]
         if cfg.layerscale:
             keys += [f"{b}.ls1.gamma", f"{b}.ls2.gamma"]
@@ -63,14 +73,21 @@ def _backbone_keys(cfg: ViTConfig) -> list[str]:
 
 def backbone_state_dict(sd: dict, cfg: ViTConfig) -> dict[str, torch.Tensor]:
     """The backbone's tensors of a hub-layout ``state_dict``, in fp32; keys
-    outside the backbone are dropped, a missing one raises ``KeyError``."""
+    outside the backbone are dropped, a missing one raises ``KeyError``.
+    Register tokens the config does not hold raise ``ValueError``: without
+    them the model would run and give other features."""
+    regs = sd.get("register_tokens")
+    if regs is not None and tuple(regs.shape[:2]) != (1, cfg.num_register_tokens):
+        raise ValueError(f"the checkpoint holds register tokens {tuple(regs.shape)}; "
+                         f"{cfg.name} has {cfg.num_register_tokens}")
     return {k: torch.as_tensor(sd[k]).detach().float() for k in _backbone_keys(cfg)}
 
 
 def load_dino_checkpoint(path: str | Path, cfg: ViTConfig) -> dict[str, torch.Tensor]:
     """Load a DINO ``.pth`` checkpoint as a backbone ``state_dict`` (fp32).
 
-    Keys outside the backbone (head, mask_token, register tokens) are dropped.
+    Keys outside the backbone (head, mask_token) are dropped; register
+    tokens are kept for a config that has them and refused otherwise.
     """
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
@@ -86,7 +103,12 @@ def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     Inverse of the JAX package's ``convert_torch_state_dict``: the HWIO
     patch-embed kernel (P, P, C, D) becomes OIHW (D, C, P, P), linear
     kernels (din, dout) become (dout, din), LayerNorm scale becomes weight.
+    The JAX package's ViT has a GELU MLP and no register tokens: a tree with
+    a SwiGLU FFN or registers raises ``ValueError``.
     """
+    if "register_tokens" in params or any("w12" in blk for blk in params["blocks"]):
+        raise ValueError("the JAX package's ViT holds no SwiGLU FFN and no register tokens")
+
     def t(x):
         return torch.from_numpy(np.array(x, dtype=np.float32))
 
@@ -117,7 +139,12 @@ def params_to_jax(sd: dict[str, torch.Tensor]) -> dict:
     """Hub-layout ``state_dict`` → the JAX package's parameter tree (numpy
     leaves), as its ``convert_torch_state_dict`` makes it: the inverse of
     ``params_from_jax``; ``models.serialization.save_params_npz`` writes it
-    in the JAX package's ``.npz`` layout."""
+    in the JAX package's ``.npz`` layout. A SwiGLU FFN (``mlp.w12``) or
+    register tokens raise ``ValueError``: the JAX package cannot hold them."""
+    if "register_tokens" in sd or any(k.endswith("mlp.w12.weight") for k in sd):
+        raise ValueError("the JAX package's ViT holds no SwiGLU FFN and no register tokens "
+                         "(DINOv2 ViT-g/14 runs in vittf_tpu_torch only)")
+
     def n(key):
         return sd[key].detach().float().cpu().numpy()
 

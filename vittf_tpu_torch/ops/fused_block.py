@@ -78,6 +78,9 @@ def _prepare(blk, num_heads: int, dtype: torch.dtype) -> FusedBlockWeights:
     """``blk``: a ``models.vit.Block`` or its hub-named tensors
     (``norm1.weight``, ``attn.qkv.weight``, ..., ``ls1.gamma``)."""
     t = blk if isinstance(blk, dict) else dict(blk.named_parameters())
+    if "mlp.w12.weight" in t:
+        raise ValueError("fused_block computes a GELU MLP (fc1, fc2); a SwiGLU block "
+                         "(w12, w3) runs per-op: block_impl='xla'")
     D = t["attn.qkv.weight"].shape[1]
     qscale = torch.tensor((D // num_heads) ** -0.5 * _LOG2E, dtype=torch.float32)
     wqkv = t["attn.qkv.weight"].float().clone()

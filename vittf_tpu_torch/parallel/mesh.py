@@ -155,14 +155,19 @@ def tp_vit_forward(
     """``VisionTransformer.forward_raw`` with this rank's ``shard_params``
     shards: heads and the MLP width split over the mesh's ``model`` axis,
     the embed, LayerNorms and residuals replicated. Returns (tokens (B, 1+hw,
-    D), the last block's full capture) on every rank."""
+    D), the last block's full capture) on every rank. The MLP's split is
+    fc1's columns and fc2's rows: a SwiGLU FFN raises ``ValueError``."""
+    if cfg.ffn != "mlp":
+        raise ValueError(f"the tensor-parallel block splits a GELU MLP; {cfg.name} has a "
+                         f"{cfg.ffn} FFN")
     m = mesh.size(2)
     if cfg.num_heads % m:
         raise ValueError(f"{cfg.num_heads} heads do not split over {m} model ranks")
     group = mesh.get_group("model")
     p = local_params
     x = embed_tokens(images, p["patch_embed.proj.weight"], p["patch_embed.proj.bias"],
-                     p["cls_token"], p["pos_embed"])
+                     p["cls_token"], p["pos_embed"], p.get("register_tokens"),
+                     cfg.interpolate_offset, cfg.interpolate_antialias)
     qkv_last = None
     for i in range(cfg.depth):
         want = capture if (return_qkv_last and i == cfg.depth - 1) else None

@@ -128,7 +128,8 @@ def pp_vit_forward(
     if B % n_micro:
         raise ValueError(f"batch {B} not divisible by {n_micro} microbatches")
     x = embed_tokens(images, params["patch_embed.proj.weight"], params["patch_embed.proj.bias"],
-                     params["cls_token"], params["pos_embed"])
+                     params["cls_token"], params["pos_embed"], params.get("register_tokens"),
+                     cfg.interpolate_offset, cfg.interpolate_antialias)
     x_micro = x.reshape(n_micro, B // n_micro, *x.shape[1:])
     stacked = stack_block_params(params, mesh.size(0))
     x_out, qkv_out = pp_vit_blocks(stacked, x_micro, cfg, mesh, n_micro, precision, attn_impl)

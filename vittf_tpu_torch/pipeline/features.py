@@ -8,8 +8,8 @@ volume shape (the JAX package fuses them into one jit for cubic volumes;
 the numbers are the same). Per slice batch: nearest resize of the raw
 slices, global min-max normalization, the ViT with the grayscale replicate
 and ImageNet normalization folded into the patch embed, the last block's k
-projection, CLS drop, and the slice-axis adaptive pool as a weighted
-accumulation. The three axes are summed as (z + y) + x. The batch loop
+projection, CLS (and register) drop, and the slice-axis adaptive pool as a
+weighted accumulation. The three axes are summed as (z + y) + x. The batch loop
 (``_accumulate``) takes its batches from a source and carries its fp32
 accumulators in and out, so the host-streamed path (``pipeline/streamed.py``)
 feeds it chunk by chunk.
@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vittf_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from vittf_tpu_torch.models.vit import ViTConfig, VisionTransformer, check_fused_ffn
 from vittf_tpu_torch.ops.resize import (
     _adaptive_avg_weight_matrix,
     adaptive_avg_pool,
@@ -129,9 +129,10 @@ def _slice_batch_features(
     """One (B, C, a, b) raw slice batch through the ViT → per-key
     (B, fh·fw, D) fp32 features from the last block's qkv projection (the
     DINO hook target, infer.py), or (B, fh·fw, D/3) thirds of the last
-    block's MLP output for ``feature_source='mlp'`` (infer_clip.py). The MLP
-    output needs the whole last block, which therefore runs per-op under
-    every ``block_impl``.
+    block's MLP output for ``feature_source='mlp'`` (infer_clip.py), the
+    non-patch tokens (CLS and any registers) dropped. The MLP output needs
+    the whole last block, which therefore runs per-op under every
+    ``block_impl``.
 
     ``mima``: the volume's global (min, max) as fp32 scalars; min-max
     normalization runs here, after the nearest resize (which commutes with
@@ -161,7 +162,8 @@ def _slice_batch_features(
         capture_thirds=thirds, block_impl=block_impl,
     )
     n, B = len(key_idx) if thirds is not None else 3, batch.shape[0]
-    feats = qkv[:, 1:].reshape(B, f_hw[0] * f_hw[1], n, qkv.shape[-1] // n)  # CLS dropped
+    patches = qkv[:, model.cfg.prefix_tokens:]  # CLS and registers dropped
+    feats = patches.reshape(B, f_hw[0] * f_hw[1], n, qkv.shape[-1] // n)
     return [feats[:, :, i if thirds is not None else ki].float()
             for i, ki in enumerate(key_idx)]
 
@@ -313,20 +315,31 @@ def _pool_to(feat: torch.Tensor, feat_out_sz: tuple[int, int, int]) -> torch.Ten
     return adaptive_avg_pool(feat, feat_out_sz)
 
 
-def _check_block_impl(block_impl: str) -> None:
+def _check_block_impl(block_impl: str, model_cfg: ViTConfig) -> None:
+    """Raise on an unknown ``block_impl``, or a fused one for a SwiGLU model,
+    before the model is built."""
     if block_impl not in ("xla", "fused", "fused_max", "fused_rows"):
         raise ValueError(f"unknown block_impl: {block_impl!r}")
+    check_fused_ffn(model_cfg, block_impl)
 
 
 def _build_model(
     params: dict, model_cfg: ViTConfig, compute_dtype: str, device, grayscale: bool
 ) -> VisionTransformer:
     """The extraction ViT: weights folded for grayscale input when the
-    checkpoint is RGB, cast to the compute dtype, on ``device``."""
+    checkpoint is RGB, cast to the compute dtype, on ``device``. The module
+    is made on the meta device and takes those tensors as its parameters
+    (``assign``): no random init and no copy through the host, whose time
+    grows with the model (seconds a call for ViT-g/14). A weight already on
+    ``device`` in the compute dtype is shared with ``params``, not copied."""
     if grayscale and params["patch_embed.proj.weight"].shape[1] == 3:
         params = fold_grayscale_patch_embed(params)
-    model = VisionTransformer.from_state_dict(model_cfg, params)
-    return model.to(device=device, dtype=_DTYPES[compute_dtype])
+    dtype = _DTYPES[compute_dtype]
+    weights = {k: torch.as_tensor(v).to(device=device, dtype=dtype) for k, v in params.items()}
+    with torch.device("meta"):
+        model = VisionTransformer(model_cfg, weights["patch_embed.proj.weight"].shape[1])
+    model.load_state_dict(weights, assign=True)
+    return model.eval().requires_grad_(False)
 
 
 def extract_features(
@@ -351,7 +364,7 @@ def _extract(vol, params, model_cfg, cfg, device, select=None, reduce=None):
     """``extract_features``, each sweep over the slice batches ``select``
     picks, its accumulators combined by ``reduce`` (``_extract_axis``)."""
     with span("features.extract"):
-        _check_block_impl(cfg.block_impl)
+        _check_block_impl(cfg.block_impl, model_cfg)
         if cfg.feature_source not in ("qkv", "mlp"):
             raise ValueError(f"unknown feature_source: {cfg.feature_source!r}")
         device = resolve_device(device)

@@ -47,7 +47,7 @@ def extract_features_streamed(
     batch_size`` raw slices. Returns {key: (F, o0, o1, o2) fp32 tensor on
     ``device``}, the first CUDA device when it is None.
     """
-    _check_block_impl(cfg.block_impl)
+    _check_block_impl(cfg.block_impl, model_cfg)
     vol = np.asarray(vol)
     if vol.ndim != 3:
         raise ValueError("streamed extraction handles scalar (W, H, D) volumes")

@@ -37,12 +37,22 @@ from pathlib import Path
 AC, SIM, BL, RB, SO = ("attention_core.cuh", "similarity.cu", "bilateral.cu",
                        "bilateral_reblock.cu", "splat_ordered.cuh")
 GC, FB, CG, WC = "gemm_core.cuh", "fused_block.cu", "chain_gemm.cu", "wgmma_common.cuh"
+SW = "swiglu.cu"
 
 # (name, chip_smoke phase, [(file, old, new), ...]); a phase without edits is the control.
 # A fault must keep every access inside its arrays: a fault of the card (an
 # illegal or misaligned address) stays with the process and fails every
 # variant after it.
 FAULTS = [
+    ("control: no edit", "swiglu", []),
+    ("K10 halves swapped", "swiglu",
+     [(SW, "silu(fa.x) * fb.x, silu(fa.y) * fb.y", "silu(fb.x) * fa.x, silu(fb.y) * fa.y")]),
+    ("K10 silu on both halves", "swiglu",
+     [(SW, "silu(fa.x) * fb.x, silu(fa.y) * fb.y",
+       "silu(fa.x) * silu(fb.x), silu(fa.y) * silu(fb.y)")]),
+    ("K10 a row's last vector skipped", "swiglu",
+     [(SW, "    const Index c = v - r * hv;\n",
+       "    const Index c = v - r * hv;\n    if (c == hv - 1) continue;\n")]),
     ("control: no edit", "attention", []),
     ("K1 skip the alpha rescale of the output", "attention",
      [(AC, "      rescale(acc, lsum, alpha);\n", "      ;\n")]),

@@ -121,7 +121,8 @@ def _token_features(params: dict, images: torch.Tensor, vit_cfg: ViTConfig,
         {"return_qkv_last": True, "capture": "qkv", "stop_after_capture": True},
     )
     idx = {"q": 0, "k": 1, "v": 2}[cfg.feature_key]
-    return _l2_normalize(split_qkv(qkv, vit_cfg.num_heads)[idx][:, 1:])  # drop cls
+    # drop CLS and any registers
+    return _l2_normalize(split_qkv(qkv, vit_cfg.num_heads)[idx][:, vit_cfg.prefix_tokens:])
 
 
 def _init_dino_head(draws: dict, dim: int, cfg: ViTSelfSupConfig) -> dict:

@@ -29,13 +29,16 @@ def vit_slice_flops(
     scalar volumes (the grayscale replicate + ImageNet normalize are
     folded into the kernel, pipeline/features.fold_grayscale_patch_embed),
     3 for RGB inputs.
+    A SwiGLU FFN (the port's DINOv2 ViT-g/14) counts 6·N·D·H for its w12
+    (2H wide) and w3; N counts CLS and the register tokens, which the patch
+    embed does not see.
     """
     N, D, p = n_tokens, cfg.embed_dim, cfg.patch_size
-    mlp_mult = getattr(cfg, "mlp_ratio", 4.0)
-    full_block = (8 + 4 * mlp_mult) * N * D * D + 4 * N * N * D
+    ffn = (6 if cfg.ffn == "swiglu" else 4) * N * D * cfg.hidden_dim
+    full_block = 8 * N * D * D + ffn + 4 * N * N * D
     depth_full = cfg.depth - 1 if last_block_qkv_only else cfg.depth
     last = 2 * capture_thirds * N * D * D if last_block_qkv_only else 0.0
-    embed = 2 * (N - 1) * D * (embed_in_ch * p * p)
+    embed = 2 * (N - cfg.prefix_tokens) * D * (embed_in_ch * p * p)
     return embed + depth_full * full_block + last
 
 
@@ -70,7 +73,7 @@ def extraction_flops(vol_shape, cfg, ex_cfg) -> float:
         perm, im_dims, out_axis = _AXIS_RULES[ax]
         f_h = im_sz[im_dims[0]] // cfg.patch_size
         f_w = im_sz[im_dims[1]] // cfg.patch_size
-        n_tokens = f_h * f_w + 1
+        n_tokens = f_h * f_w + cfg.prefix_tokens
         S = vol_shape[perm[0]]
         o_ax = feat_out_sz[out_axis - 1]
         pooled = ex_cfg.pooling()
