@@ -99,8 +99,18 @@ quality harness and the multi-device layer. Phases:
    bound, the twin and ``F.silu(x1) * x2``; then the path
    (``phase_swiglu_path``): ViT-g/14-reg at full width and three blocks
    through ``extract_features`` on a 64³ phantom (448² slices, 1029 tokens,
-   batch 32: 12 gate launches), kernels vs plain twins at the bf16
-   block-stack contract, and ``block_impl='fused'`` refused before a launch;
+   batch 32: 12 gate launches, 42 of K11), kernels vs plain twins at the
+   bf16 block-stack contract, and ``block_impl='fused'`` refused before a
+   launch;
+5f. residual + LayerNorm (K11, ``phase_layer_norm``, between 5e's two
+   parts) in its three modes at the per-op extraction cells' launches,
+   (32 776, 768) and (32 928, 1536) bf16, and at ragged shapes, outputs
+   poisoned with NaN first: x' bit-equal to the twin run on the card, y
+   within the bounds of ``hold_ln`` (the twin's normalised value moved by
+   its statistics' fp32 rounding) and, over 1000 rows or more, at least
+   99.9% bit-equal, each equal to its repeat; timed beside its byte
+   bound, the twins and ``torch.add`` / ``F.layer_norm`` (its registers
+   and spills with ``--ptxas``);
 6. main path: ``infer`` on a 128³ phantom, ``predict_ntf``, three requests;
    the attention and similarity launch counters must have risen;
 7. fused path: ``infer --block-impl fused`` on the same volume (528 fused
@@ -287,6 +297,7 @@ from vittf_tpu_torch.ops.fused_block import (
     kernel_buffers,
     launch_kernel,
 )
+from vittf_tpu_torch.ops import layer_norm as ln_ops
 from vittf_tpu_torch.ops.similarity import class_mean_matrix, similarity, similarity_plain
 from vittf_tpu_torch.ops.swiglu import swiglu, swiglu_plain
 from vittf_tpu_torch.pipeline.annotations import annotations_from_labels
@@ -336,6 +347,10 @@ from vittf_tpu_torch.utils.tensor import ieee_matmul
 
 ATTN_SHAPE = (8, 6, 4097, 64)  # vits8 at fos 64: 8 slices, 6 heads, 64²+1 tokens
 SWIGLU_SHAPE = (32 * 1029, 2 * 4096)  # ViT-g/14-reg's w12 output: batch 32 of 32²+5 tokens
+# the per-op extraction cells' residual streams: ViT-B/8, batch 8 of 64²+1
+# tokens; ViT-g/14-reg, batch 32 of 32²+5
+LN_SHAPES = ((8 * 4097, 768), (32 * 1029, 1536))
+LN_BYTES = {"ln": 4, "residual_ln": 8, "residual": 6}  # a mode's bytes an element
 BLOCK_SHAPE = (8, 4097, 384)  # the same slice batch as tokens of width D
 LOUD_PEAK, K_SHIFT = 4.0, 80.0  # loud_params' Wq/Wk scale; the row-max case's k-bias scale
 SIM_N, SIM_F, SIM_PER_CLASS, SIM_C = 64**3, 384, 256, 5
@@ -2213,18 +2228,147 @@ def phase_swiglu(gen):
     return kernel_entry(0.0, ms, plain_ms, nbytes=nbytes, ops=0, peak="bf16", library_ms=lib_ms)
 
 
+def ln_inputs(shape, gen):
+    """(x, a, gamma, ln) on the card: rows whose means (up to ±50) and
+    scales (1 to 20) vary as a residual stream's do, and one row in eight
+    quiet (mean 0, scale 5e-5 to 1e-3: its variance lies about eps, so eps
+    counts); a branch at 4σ, gamma U[0.25, 1.25], LayerNorm gains
+    1 + N(0, 0.1) and shifts N(0, 0.05), so every term of the statistics
+    and of the scaled residual counts."""
+    lead = (*shape[:-1], 1)
+    z = torch.randn(shape, generator=gen)
+    scale = torch.exp(3 * torch.rand(lead, generator=gen) - 3) * 20
+    offset = 50 * (2 * torch.rand(lead, generator=gen) - 1)
+    quiet = torch.rand(lead, generator=gen) < 0.125
+    x = z * torch.where(quiet, 5e-5 * scale, scale) + torch.where(quiet, 0.0, offset)
+    a = 4 * torch.randn(shape, generator=gen)
+    D = shape[-1]
+    gamma = 0.25 + torch.rand(D, generator=gen)
+    w, b = 1 + 0.1 * torch.randn(D, generator=gen), 0.05 * torch.randn(D, generator=gen)
+    x, a, gamma, w, b = (t.to("cuda", torch.bfloat16) for t in (x, a, gamma, w, b))
+    return x, a, gamma, types.SimpleNamespace(weight=w, bias=b, eps=1e-6)
+
+
+LN_SHARE_ROWS = 1000  # rows from which hold_ln also holds the bit-equal share
+
+
+def hold_ln(name, got, x_in, ln):
+    """K11's y against the twin. The kernel rounds where the twin rounds;
+    only its two fp32 sums (μ, then σ²) take another order than PyTorch's
+    reductions. So each y must be what the twin's last steps, bf16(ŷ)·w + b,
+    give from a ŷ within e = 2^-8·|ŷ| + 2^-20·(|μ| + σ)·r of the twin's fp32
+    ŷ = (x − μ)·r, r = rsqrt(σ² + eps): at most one bf16 step of ŷ, and 8
+    fp32 ulps of the row's magnitude in μ carried into ŷ by r (felt only
+    where x ≈ μ and |μ| ≫ σ, where ŷ's bf16 step is smaller than μ's
+    rounding). Those steps are monotone in ŷ, so y must lie between their
+    values at ŷ − e and ŷ + e. Over ``LN_SHARE_ROWS`` rows or more, at least
+    99.9% of y must also be bit-equal to the twin (over fewer, a ŷ that
+    rounds the other way counts once for every copy of a repeated bf16 x,
+    so the share measures the draw). Returns (share bit-equal, values that
+    differ, max |y − twin|)."""
+    want = ln_ops._layer_norm(x_in, ln)
+    xf = x_in.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    r = torch.rsqrt(var + ln.eps)
+    yhat = (xf - mu) * r
+    e = 2**-8 * yhat.abs() + 2**-20 * (mu.abs() + var.sqrt()) * r
+    ends = [(v.to(x_in.dtype) * ln.weight + ln.bias) for v in (yhat - e, yhat + e)]
+    ok = (got >= torch.minimum(*ends)) & (got <= torch.maximum(*ends))
+    equal = got == want
+    share, differ = equal.float().mean().item(), int((~equal).sum())
+    rows = got.numel() // got.shape[-1]
+    if (rows >= LN_SHARE_ROWS and share < 0.999) or not bool(ok.all()):
+        raise AssertionError(f"{name}: {share} of y bit-equal to the twin over {rows} rows, "
+                             f"{int((~ok).sum())} outside the normalised value's bounds")
+    return share, differ, (got.float() - want.float()).abs().max().item()
+
+
+def phase_layer_norm(gen):
+    """K11 against its plain twins on the card in its three modes (LN;
+    residual + LN with and without gamma; residual with gamma), at the
+    per-op extraction cells' launch shapes and at ragged ones (rows 1, 7,
+    129; widths 8, 384, 1024, 1544, 2048; a (2, 1029, 1536) batch), both
+    outputs poisoned with NaN first: x' bit-equal to ``residual_plain``, y
+    held by ``hold_ln``, each result bit-equal to its repeat. Then, at the
+    cells' shapes, each mode timed ten calls an event pair (and with the L2
+    flushed before each call) beside its byte bound (LN 4, residual + LN 8,
+    residual 6 bytes an element), the twins and the library yardstick
+    (``F.layer_norm``, ``torch.add`` and both, without gamma; the port calls
+    neither). Registers and spills come from ``--ptxas``. Returns the
+    residual + LN entry at ViT-B/8's shape, with the largest |y − twin| of
+    its two residual + LN cases there."""
+    def poison_two(fn, shape):
+        blocks = [torch.full(shape, float("nan"), device="cuda") for _ in range(2)]
+        del blocks
+        return fn()
+
+    cases = [*LN_SHAPES, (1, 8), (7, 384), (129, 1024), (33, 1544), (3, 2048), (2, 1029, 1536)]
+    residual_ln_err = {}
+    for shape in cases:
+        x, a, gamma, ln = ln_inputs(shape, gen)
+        half = (*shape[:-1], shape[-1] // 2)  # fp32 of a bf16 output's bytes
+        worst = []
+        for mode, g in (("ln", None), ("residual_ln", gamma), ("residual_ln", None),
+                        ("residual", gamma)):
+            name = f"layer_norm {tuple(shape)} {mode}{' gamma' if g is not None else ''}"
+            fn = {"ln": lambda: (None, ln_ops.layer_norm(x, ln)),
+                  "residual_ln": lambda: ln_ops.residual_layer_norm(x, a, g, ln),
+                  "residual": lambda: (ln_ops.residual(x, a, g), None)}[mode]
+            got = poison_two(fn, half)
+            again = poison_two(fn, half)
+            x_in = x
+            if mode != "ln":
+                x_in = ln_ops.residual_plain(x, a, g)
+                assert_equal(f"{name}: x' vs the twin", got[0], x_in)
+                assert_equal(f"{name}: x' repeat", again[0], got[0])
+            if mode != "residual":
+                worst.append(hold_ln(name, got[1], x_in, ln))
+                assert_equal(f"{name}: y repeat", again[1], got[1])
+        residual_ln_err[tuple(shape)] = max(worst[1][2], worst[2][2])
+        print(f"layer_norm {tuple(shape)}: x' equal to the twin on the card and every result to "
+              f"its repeat; y (share bit-equal, values that differ, max |y - twin|) LN, "
+              f"residual + LN with and without gamma: {worst}")
+    entry = None
+    for M, D in LN_SHAPES:
+        x, a, gamma, ln = ln_inputs((M, D), gen)
+        runs = {
+            "ln": (lambda: ln_ops.layer_norm(x, ln), lambda: ln_ops._layer_norm(x, ln),
+                   lambda: torch.nn.functional.layer_norm(x, (D,), ln.weight, ln.bias, ln.eps)),
+            "residual_ln": (lambda: ln_ops.residual_layer_norm(x, a, gamma, ln),
+                            lambda: ln_ops._layer_norm(ln_ops.residual_plain(x, a, gamma), ln),
+                            lambda: torch.nn.functional.layer_norm(
+                                torch.add(x, a), (D,), ln.weight, ln.bias, ln.eps)),
+            "residual": (lambda: ln_ops.residual(x, a, gamma),
+                         lambda: ln_ops.residual_plain(x, a, gamma), lambda: torch.add(x, a)),
+        }
+        for mode, (kernel, twin, library) in runs.items():
+            nbytes = LN_BYTES[mode] * M * D
+            ms, cold = ten_call_ms(kernel), ten_call_ms(kernel, cold_l2=True)
+            plain_ms, lib_ms = ten_call_ms(twin), ten_call_ms(library)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"layer_norm ({M}, {D}) {mode}: kernel {ms} ms ({nbytes / ms / 1e6} GB/s, "
+                  f"{100 * bound / ms}% of the bound {bound} ms); L2 flushed first {cold} ms; "
+                  f"plain {plain_ms} ms; library {lib_ms} ms")
+            if mode == "residual_ln" and entry is None:
+                entry = kernel_entry(residual_ln_err[(M, D)], ms, plain_ms, nbytes=nbytes, ops=0,
+                                     peak="bf16", library_ms=lib_ms)
+    return entry
+
+
 def phase_swiglu_path(seed):
     """ViT-g/14-reg at full width with three blocks (LayerScale gammas at 1,
     so every block reaches the output) through ``extract_features`` on a
     64³ phantom: 448² slices of 1029 tokens, 6 batches of 32, two whole
     blocks each: 12 gate launches; kernels vs plain twins (both bf16) at the
     bf16 block-stack contract of ``phase_consistency``; the fused block
-    refused. Returns the gate's launches."""
+    refused. Returns the gate's and K11's launches (42: two whole blocks
+    and the last block's LN1 a batch)."""
     cfg = dataclasses.replace(resolve_model(dino2_model="vitg14_reg"), depth=3)
     params = init_vit_params(cfg, (0, seed))
     params = {k: torch.ones_like(v) if k.endswith(".gamma") else v for k, v in params.items()}
     vol, _ = phantom(64, seed + 11)
-    feats, before = {}, swiglu.launches
+    feats, before, ln_before = {}, swiglu.launches, ln_ops.layer_norm.launches
     for impl in ("auto", "plain"):
         ex = ExtractConfig(feature_output_size=32, batch_size=32, compute_dtype="bfloat16",
                            attn_impl=impl)
@@ -2233,14 +2377,17 @@ def phase_swiglu_path(seed):
         torch.cuda.synchronize()
         print(f"ViT-g/14-reg x 3 blocks on 64^3 ({impl}): {time.perf_counter() - t0} s")
     launches = swiglu.launches - before
-    if launches != 12:
-        raise AssertionError(f"swiglu launched {launches} times on the path, not 12")
+    ln_launches = ln_ops.layer_norm.launches - ln_before
+    if (launches, ln_launches) != (12, 42):
+        raise AssertionError(f"swiglu and layer_norm launched {launches} and {ln_launches} "
+                             f"times on the path, not 12 and 42 (2 blocks x 3 + 1 a batch)")
     got, want = feats["auto"], feats["plain"]
     if tuple(got.shape) != (1536, 32, 32, 32):
         raise AssertionError(f"ViT-g/14-reg extraction shape {tuple(got.shape)}")
     err = check_rel("ViT-g/14-reg extraction kernels vs plain", got, want, 0.02)
     print(f"ViT-g/14-reg extraction kernels vs plain: max_abs_err {err} (limit "
-          f"{0.02 * want.abs().max().item()}); {launches} gate launches")
+          f"{0.02 * want.abs().max().item()}); {launches} gate and {ln_launches} residual + "
+          f"LayerNorm launches")
     try:
         extract_features(vol, params, cfg, ExtractConfig(compute_dtype="bfloat16",
                                                          block_impl="fused"), device="cuda")
@@ -2248,7 +2395,7 @@ def phase_swiglu_path(seed):
         print(f"block_impl='fused' refused for SwiGLU: {e}")
     else:
         raise AssertionError("block_impl='fused' ran a SwiGLU model")
-    return launches
+    return launches, ln_launches
 
 
 def phase_consistency(seed):
@@ -3374,7 +3521,8 @@ def main() -> int:
     entries["fused_block"] = phase_fused_block(gen)
     entries["chain_gemm"] = phase_chain_gemm()
     entries["swiglu"] = phase_swiglu(gen)
-    n_swiglu = phase_swiglu_path(args.seed)
+    entries["layer_norm"] = phase_layer_norm(gen)
+    n_swiglu, n_ln = phase_swiglu_path(args.seed)
     n_k9 = phase_probe_path()
     phase_baselines(args.seed)
     phase_foundations(args.seed)
@@ -3417,6 +3565,8 @@ def main() -> int:
          n_blocked[3]),
         ("chain_gemm", "chain_gemm.cu", "scripts/bench_int8_gemm.py:60", n_k9),
         ("swiglu", "swiglu.cu", "none (DINOv2's SwiGLU gate)", n_swiglu),
+        ("layer_norm", "layer_norm.cu", "none (the per-op block's residual adds and "
+         "LayerNorms, which XLA fuses)", n_ln),
     ]
     if min(n for *_, n in kernel_list) == 0:
         raise AssertionError(f"a kernel was launched no time on its path: {kernel_list}")

@@ -22,7 +22,7 @@ def test_edit_applies_exactly_once(name, edits):
 
 def test_every_redesigned_kernel_has_three_faults():
     for kernel in ("K1", "K2", "K4", "K5", "K6a", "K6b", "K7a", "K7b", "K8", "K3 attention", "K3 gemm",
-                   "K9 gemm", "K9 requant", "K10"):
+                   "K9 gemm", "K9 requant", "K10", "K11"):
         assert sum(name.startswith(kernel) for name, _ in FAULTS) >= 3, kernel
 
 

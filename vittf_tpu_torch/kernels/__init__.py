@@ -97,6 +97,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vittf_chain_gemm.restype = i32
     lib.vittf_swiglu.argtypes = [vp, vp, ctypes.c_longlong, i32, vp]
     lib.vittf_swiglu.restype = i32
+    lib.vittf_layer_norm.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i32, f32, vp]
+    lib.vittf_layer_norm.restype = i32
 
 
 def load_library() -> ctypes.CDLL:

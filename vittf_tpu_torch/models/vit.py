@@ -15,7 +15,9 @@ The compute dtype is the module's parameter dtype (``model.to(dtype)``).
 the same forward for training (``train/vit_ssl.py``): autograd
 differentiates it, and it takes the plain attention. Per-op blocks
 (``block_impl='xla'``) run attention through
-``vittf_tpu_torch.ops.attention`` (the CUDA kernel on CUDA tensors) and the
+``vittf_tpu_torch.ops.attention`` (the CUDA kernel on CUDA tensors), each
+residual add with the LayerNorm after it through
+``vittf_tpu_torch.ops.layer_norm`` (K11 on bf16 CUDA tensors) and the
 linears as plain ``torch`` matmuls; ``block_impl='fused*'`` runs each
 non-final bf16 block through ``vittf_tpu_torch.ops.fused_block`` (K3). The
 token-GEMM patch embed is a plain ``torch`` matmul.
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 
 from vittf_tpu_torch.ops.attention import multi_head_attention
 from vittf_tpu_torch.ops.fused_block import fused_block
+from vittf_tpu_torch.ops.layer_norm import layer_norm, residual, residual_layer_norm
 from vittf_tpu_torch.ops.resize import resize_cubic_scaled
 from vittf_tpu_torch.ops.swiglu import swiglu
 
@@ -145,15 +148,6 @@ def init_vit_params(
     if cfg.num_register_tokens:
         sd["register_tokens"] = tn((1, cfg.num_register_tokens, D))
     return sd
-
-
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    # statistics in fp32 for bf16 activation runs, then scale/shift in x.dtype
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = (xf - mu).square().mean(-1, keepdim=True)
-    y = ((xf - mu) * torch.rsqrt(var + ln.eps)).to(x.dtype)
-    return y * ln.weight + ln.bias
 
 
 def interpolate_pos_embed(
@@ -270,23 +264,22 @@ class Block(nn.Module):
         """Returns (x, captured): captured is the qkv projection output
         ('qkv'), the MLP output before the residual ('mlp') or None.
         ``attn_impl`` ('auto' | 'plain') picks the kernels or the plain twins
-        for the attention and the SwiGLU gate alike."""
-        qkv = self.attn.qkv(_layer_norm(x, self.norm1))  # (B, N, 3D)
-        a = multi_head_attention(qkv, self.num_heads, attn_impl)
-        a = self.attn.proj(a)
-        if hasattr(self, "ls1"):
-            a = a * self.ls1.gamma
-        x = x + a
-        y = _layer_norm(x, self.norm2)
+        for the attention, the SwiGLU gate and the residual + LayerNorm
+        passes (``ops.layer_norm``) alike."""
+        qkv = self.attn.qkv(layer_norm(x, self.norm1, attn_impl))  # (B, N, 3D)
+        a = self.attn.proj(multi_head_attention(qkv, self.num_heads, attn_impl))
+        gamma1 = self.ls1.gamma if hasattr(self, "ls1") else None
+        x, y = residual_layer_norm(x, a, gamma1, self.norm2, attn_impl)
         if self.ffn == "swiglu":
             y = self.mlp.w3(swiglu(self.mlp.w12(y), attn_impl))
         else:
             # parity mode uses torch's exact erf GELU, speed mode the tanh form
             y = F.gelu(self.mlp.fc1(y), approximate="none" if precision == "highest" else "tanh")
             y = self.mlp.fc2(y)
-        if hasattr(self, "ls2"):
-            y = y * self.ls2.gamma
-        x = x + y
+        gamma2 = self.ls2.gamma if hasattr(self, "ls2") else None
+        if capture == "mlp" and gamma2 is not None:
+            y, gamma2 = y * gamma2, None  # the capture is the branch after LayerScale
+        x = residual(x, y, gamma2, attn_impl)
         captured = {"qkv": qkv, "mlp": y}.get(capture) if capture else None
         return x, captured
 
@@ -392,7 +385,7 @@ class VisionTransformer(nn.Module):
             if stop_after_capture and is_last and want == "qkv":
                 # the last block's qkv projection depends only on LN1(x): the
                 # rest of the block and the final LayerNorm are dead compute
-                y = _layer_norm(x, blk.norm1)
+                y = layer_norm(x, blk.norm1, attn_impl)
                 weight, bias = blk.attn.qkv.weight, blk.attn.qkv.bias
                 if capture_thirds is not None:
                     D = self.cfg.embed_dim
@@ -409,7 +402,7 @@ class VisionTransformer(nn.Module):
             x, cap = blk(x, precision, attn_impl, capture=want)
             if cap is not None:
                 qkv_last = cap
-        return _layer_norm(x, self.norm), qkv_last
+        return layer_norm(x, self.norm, attn_impl), qkv_last
 
 
 def split_qkv(

@@ -26,8 +26,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
-from vittf_tpu_torch.models.vit import ViTConfig, _layer_norm, embed_tokens
+from vittf_tpu_torch.models.vit import ViTConfig, embed_tokens
 from vittf_tpu_torch.ops.attention import multi_head_attention
+from vittf_tpu_torch.ops.layer_norm import _layer_norm
 
 # each block's split: 'column_heads' splits dim 0 by head within each of q,
 # k and v; 'column' splits dim 0; 'row_heads' / 'row' split dim 1 (the

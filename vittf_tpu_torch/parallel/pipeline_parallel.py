@@ -19,7 +19,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from vittf_tpu_torch.models.vit import Block, ViTConfig, _layer_norm, embed_tokens
+from vittf_tpu_torch.models.vit import Block, ViTConfig, embed_tokens
+from vittf_tpu_torch.ops.layer_norm import _layer_norm
 
 
 def stack_block_params(params: dict, n_stages: int) -> dict[str, torch.Tensor]:

@@ -37,7 +37,7 @@ from pathlib import Path
 AC, SIM, BL, RB, SO = ("attention_core.cuh", "similarity.cu", "bilateral.cu",
                        "bilateral_reblock.cu", "splat_ordered.cuh")
 GC, FB, CG, WC = "gemm_core.cuh", "fused_block.cu", "chain_gemm.cu", "wgmma_common.cuh"
-SW = "swiglu.cu"
+SW, LN = "swiglu.cu", "layer_norm.cu"
 
 # (name, chip_smoke phase, [(file, old, new), ...]); a phase without edits is the control.
 # A fault must keep every access inside its arrays: a fault of the card (an
@@ -53,6 +53,22 @@ FAULTS = [
     ("K10 a row's last vector skipped", "swiglu",
      [(SW, "    const Index c = v - r * hv;\n",
        "    const Index c = v - r * hv;\n    if (c == hv - 1) continue;\n")]),
+    ("control: no edit", "layer_norm", []),
+    ("K11 gamma dropped", "layer_norm",
+     [(LN, "          if (gamma != nullptr) {", "          if (false) {")]),
+    ("K11 statistics taken in bf16", "layer_norm",
+     [(LN, "const float mu = __fmul_rn(warp_sum(sum), inv_d);",
+       "const float mu = round_bf16(__fmul_rn(warp_sum(sum), inv_d));"),
+      (LN, "const float rstd = rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), eps));",
+       "const float rstd = round_bf16(rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), eps)));")]),
+    ("K11 eps ten times too large", "layer_norm",
+     [(LN, "rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), eps));",
+       "rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), 10.f * eps));")]),
+    ("K11 the residual read after LN (x' written from y)", "layer_norm",
+     [(LN, "          x_out[row + c] = to_bf16(v[i]);\n", ""),
+      (LN, "        y_out[row + c] = to_bf16(v[i]);\n",
+       "        y_out[row + c] = to_bf16(v[i]);\n"
+       "        if (RES) x_out[row + c] = to_bf16(v[i]);\n")]),
     ("control: no edit", "attention", []),
     ("K1 skip the alpha rescale of the output", "attention",
      [(AC, "      rescale(acc, lsum, alpha);\n", "      ;\n")]),
