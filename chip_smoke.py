@@ -2266,7 +2266,7 @@ def hold_ln(name, got, x_in, ln):
     rounds the other way counts once for every copy of a repeated bf16 x,
     so the share measures the draw). Returns (share bit-equal, values that
     differ, max |y − twin|)."""
-    want = ln_ops._layer_norm(x_in, ln)
+    want = ln_ops.layer_norm_plain(x_in, ln.weight, ln.bias, ln.eps)
     xf = x_in.float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
@@ -2333,10 +2333,12 @@ def phase_layer_norm(gen):
     for M, D in LN_SHAPES:
         x, a, gamma, ln = ln_inputs((M, D), gen)
         runs = {
-            "ln": (lambda: ln_ops.layer_norm(x, ln), lambda: ln_ops._layer_norm(x, ln),
+            "ln": (lambda: ln_ops.layer_norm(x, ln),
+                   lambda: ln_ops.layer_norm_plain(x, ln.weight, ln.bias, ln.eps),
                    lambda: torch.nn.functional.layer_norm(x, (D,), ln.weight, ln.bias, ln.eps)),
             "residual_ln": (lambda: ln_ops.residual_layer_norm(x, a, gamma, ln),
-                            lambda: ln_ops._layer_norm(ln_ops.residual_plain(x, a, gamma), ln),
+                            lambda: ln_ops.layer_norm_plain(
+                                ln_ops.residual_plain(x, a, gamma), ln.weight, ln.bias, ln.eps),
                             lambda: torch.nn.functional.layer_norm(
                                 torch.add(x, a), (D,), ln.weight, ln.bias, ln.eps)),
             "residual": (lambda: ln_ops.residual(x, a, gamma),

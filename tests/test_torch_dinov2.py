@@ -197,7 +197,7 @@ def test_gate_twin_is_silu_of_the_first_half_times_the_second(dtype):
 def test_fused_blocks_are_refused_for_swiglu(params):
     model = VisionTransformer.from_state_dict(TINY, params).to(torch.bfloat16)
     with pytest.raises(ValueError, match="GELU"):
-        model.forward_raw(torch.randn(1, 3, 8, 8).bfloat16(), block_impl="fused_nomax")
+        model.forward_raw(torch.randn(1, 3, 8, 8).bfloat16(), block_impl="fused")
     for impl in ("fused", "fused_max", "fused_rows"):
         with pytest.raises(ValueError, match="GELU"):
             features.extract_features(volume(8), params, TINY,

@@ -22,8 +22,11 @@ import torch
 from tests.test_torch_vit import as_numpy_tree, port_cfg, port_model
 from vittf_tpu.models.vit import ViTConfig, _block, init_vit_params, vit_forward_raw
 from vittf_tpu.ops import fused_block as jfb
+from vittf_tpu_torch.models import vit as port_vit
 from vittf_tpu_torch.models.dino import params_from_jax
 from vittf_tpu_torch.ops import fused_block as tfb
+from vittf_tpu_torch.ops.layer_norm import layer_norm_plain
+from vittf_tpu_torch.pipeline import features as tf
 
 MINI = ViTConfig(patch_size=8, embed_dim=128, depth=2, num_heads=2, img_size=32)
 MINI_LS = ViTConfig(patch_size=8, embed_dim=128, depth=1, num_heads=2, img_size=32,
@@ -79,9 +82,11 @@ def test_plain_matches_jax(mini, n_tokens):
 
 @pytest.mark.parametrize("impl,softmax_max", [("loop", False), ("rows", True), ("rows", False)])
 def test_impl_and_softmax_max_match_jax_interpret(mini, impl, softmax_max):
+    """Each of the JAX kernel's grid schedules (``impl``) computes what the
+    port's one kernel, which has no ``impl``, computes."""
     params, blk = mini
     x = _x((2, 401, MINI.embed_dim), seed=1)
-    got = tfb.fused_block(torch.from_numpy(x), blk, MINI.num_heads, impl=impl,
+    got = tfb.fused_block(torch.from_numpy(x), blk, MINI.num_heads,
                           softmax_max=softmax_max).numpy()
     want = jfb.fused_block(jnp.asarray(x), params["blocks"][0], MINI.num_heads, interpret=True,
                            impl=impl, softmax_max=softmax_max)
@@ -153,31 +158,61 @@ def test_score_dtype_is_gone(mini, fn):
         fn(torch.zeros((1, 8, MINI.embed_dim)), blk, MINI.num_heads, score_dtype="fp32")
 
 
-@pytest.mark.parametrize("block_impl", ["fused", "fused_rows", "fused_nomax", "fused_rows_nomax"])
-def test_fused_names_resolve_as_jax(mini, monkeypatch, block_impl):
-    """Each 'fused[_rows][_nomax]' name reaches fused_block with the impl and
-    softmax_max that the JAX forward passes for the same name."""
+# (the JAX forward's name, the port's name for the same numerics): the JAX
+# model's 'fused[_rows][_nomax]' grammar against the port's one table
+@pytest.mark.parametrize("jax_name,port_name", [
+    ("fused", "fused_max"), ("fused_rows", "fused_rows"),
+    ("fused_nomax", "fused"), ("fused_rows_nomax", "fused"),
+])
+def test_fused_names_resolve_as_jax(mini, monkeypatch, jax_name, port_name):
+    """The port's name reaches fused_block with the softmax_max that the JAX
+    forward passes for its name."""
     params, _ = mini
     seen = {}
 
     def spy(side, real):
         def call(x, blk, num_heads, **kw):
-            seen.setdefault(side, []).append((kw["impl"], kw["softmax_max"]))
+            seen.setdefault(side, []).append(kw["softmax_max"])
             return real(x, blk, num_heads, **kw)
         return call
 
-    from vittf_tpu_torch.models import vit as port_vit
     monkeypatch.setattr(jfb, "fused_block",
                         spy("jax", functools.partial(jfb.fused_block, interpret=True)))
     monkeypatch.setattr(port_vit, "fused_block", spy("port", tfb.fused_block))
     imgs = _x((1, 3, 32, 32), seed=9)
     vit_forward_raw(params, jnp.asarray(imgs), MINI, compute_dtype=jnp.bfloat16,
-                    block_impl=block_impl)
+                    block_impl=jax_name)
     port_model(params, MINI, torch.bfloat16).forward_raw(torch.from_numpy(imgs),
-                                                         block_impl=block_impl)
+                                                         block_impl=port_name)
     assert seen["port"] == seen["jax"] and len(seen["port"]) == MINI.depth - 1
-    assert seen["port"][0] == ("rows" if "_rows" in block_impl else "loop",
-                               "_nomax" not in block_impl)
+    assert seen["port"][0] == ("_nomax" not in jax_name)
+
+
+@pytest.mark.parametrize("path", ["forward_raw", "extract_features"])
+@pytest.mark.parametrize("block_impl,softmax_max",
+                         [("fused", False), ("fused_max", True), ("fused_rows", True)])
+def test_block_impl_reaches_fused_block_with_its_softmax_max(mini, monkeypatch, path,
+                                                             block_impl, softmax_max):
+    """One name means one softmax_max in the model and at the extraction
+    layer, which passes ``ExtractConfig.block_impl`` through unchanged."""
+    params, _ = mini
+    seen = []
+
+    def spy(x, blk, num_heads, **kw):
+        seen.append(kw["softmax_max"])
+        return tfb.fused_block(x, blk, num_heads, **kw)
+
+    monkeypatch.setattr(port_vit, "fused_block", spy)
+    if path == "forward_raw":
+        port_model(params, MINI, torch.bfloat16).forward_raw(
+            torch.from_numpy(_x((1, 3, 32, 32), seed=10)), block_impl=block_impl)
+    else:
+        cfg = tf.ExtractConfig(feature_output_size=4, batch_size=8, compute_dtype="bfloat16",
+                               block_impl=block_impl)
+        tf.extract_features(np.random.default_rng(10).random((16, 16, 16)).astype(np.float32),
+                            params_from_jax(as_numpy_tree(params)), port_cfg(MINI), cfg,
+                            device="cpu")
+    assert seen and set(seen) == {softmax_max}
 
 
 @pytest.mark.parametrize("D,Hd,heads,dtype", [
@@ -186,6 +221,8 @@ def test_fused_names_resolve_as_jax(mini, monkeypatch, block_impl):
     (384, 1600, 6, torch.bfloat16),    # the MLP width
     (384, 1536, 3, torch.bfloat16),    # head dim 128
     (384, 1536, 6, torch.float32),
+    (2176, 8704, 34, torch.bfloat16),  # wider than K11's LayerNorm row
+    (4096, 16384, 64, torch.bfloat16),
 ])
 def test_kernel_shape_refusals(D, Hd, heads, dtype):
     with pytest.raises(ValueError, match="fused_block kernel"):
@@ -274,7 +311,7 @@ def test_resident_linear_model_bit_equal_to_plain(K, N, bn):
     ±v plus an offset), unit LayerNorm gain and integer shift kept out of the
     product's way by taking the product on integer-valued rows. 150 rows: a
     full row block and a ragged one of 22. The model must equal the twin's
-    ``_layer_norm`` bit for bit on the LayerNorm alone, and the twin's product
+    ``layer_norm_plain`` bit for bit on the LayerNorm alone, and the twin's product
     on the staged rows."""
     rng = np.random.default_rng(K + N)
     M = 150
@@ -284,8 +321,8 @@ def test_resident_linear_model_bit_equal_to_plain(K, N, bn):
     g = _bf16(1 + 0.5 * rng.standard_normal(K))
     b = _bf16(0.5 * rng.standard_normal(K))
     eye = np.eye(K, dtype=np.float32)
-    want_ln = tfb._layer_norm(torch.from_numpy(a).bfloat16(), torch.from_numpy(g).bfloat16(),
-                              torch.from_numpy(b).bfloat16()).float().numpy()
+    want_ln = layer_norm_plain(torch.from_numpy(a).bfloat16(), torch.from_numpy(g).bfloat16(),
+                               torch.from_numpy(b).bfloat16()).float().numpy()
     got_ln = _resident_linear_model(_bf16(a), eye, ln=(g, b), bn=K if K == 128 else 192)
     np.testing.assert_array_equal(got_ln, want_ln)
     # the product, no LayerNorm (the proj form), on integer rows and weights
@@ -305,7 +342,7 @@ def test_resident_linear_model_matches_plain_ln_product(K):
     g, b = _bf16(1 + 0.5 * rng.standard_normal(K)), _bf16(0.5 * rng.standard_normal(K))
     w = _bf16(rng.standard_normal((256, K)) / np.sqrt(K))
     tb = lambda v: torch.from_numpy(v).bfloat16()  # noqa: E731
-    want = tfb._mm(tfb._layer_norm(tb(a), tb(g), tb(b)), tb(w)).numpy()
+    want = tfb._mm(layer_norm_plain(tb(a), tb(g), tb(b)), tb(w)).numpy()
     got = _resident_linear_model(a, w, ln=(g, b), bn=128)
     assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
 
@@ -358,14 +395,14 @@ def _block_with_attention(x, blk, num_heads, attend):
     w = tfb._block_weights(blk, num_heads, x.dtype)
     B, N, D = x.shape
     dt = x.dtype
-    qkv = (tfb._mm(tfb._layer_norm(x, w.ln1_w, w.ln1_b), w.wqkv) + w.bqkv.float()).to(dt)
+    qkv = (tfb._mm(layer_norm_plain(x, w.ln1_w, w.ln1_b), w.wqkv) + w.bqkv.float()).to(dt)
     q, k, v = qkv.view(B, N, 3, num_heads, D // num_heads).permute(2, 0, 3, 1, 4).float().numpy()
     o = np.stack([np.stack([attend(q[b, h], k[b, h], v[b, h]) for h in range(num_heads)])
                   for b in range(B)])
     o = torch.from_numpy(o).to(dt)
     a = tfb._mm(o.permute(0, 2, 1, 3).reshape(B, N, D), w.wproj).to(dt) + w.bproj
     x2 = x + a * w.ls1
-    mid = tfb._mm(tfb._layer_norm(x2, w.ln2_w, w.ln2_b), w.wfc1).to(dt) + w.bfc1
+    mid = tfb._mm(layer_norm_plain(x2, w.ln2_w, w.ln2_b), w.wfc1).to(dt) + w.bfc1
     mid = torch.nn.functional.gelu(mid, approximate="tanh")
     return x2 + (tfb._mm(mid, w.wfc2).to(dt) + w.bfc2) * w.ls2
 
@@ -460,15 +497,26 @@ def test_forward_raw_fp32_keeps_per_op_blocks(mini):
         model.forward_raw(imgs, block_impl="fused_fast")
 
 
-@pytest.mark.parametrize("block_impl", ["fused", "fused_rows_nomax"])
-def test_forward_raw_bf16_matches_jax(mini, monkeypatch, block_impl):
+@pytest.mark.parametrize("block_impl", ["fused_nomax", "fused_rows_nomax"])
+def test_forward_raw_refuses_the_jax_model_grammar(mini, block_impl):
+    """The JAX model's '_nomax' names are not the port's: one table, one
+    meaning of 'fused' in every layer."""
+    params, _ = mini
+    model = port_model(params, MINI, torch.bfloat16)
+    with pytest.raises(ValueError, match="unknown block_impl"):
+        model.forward_raw(torch.from_numpy(_x((1, 3, 32, 32), seed=7)), block_impl=block_impl)
+
+
+@pytest.mark.parametrize("jax_name,port_name", [("fused", "fused_max"),
+                                                ("fused_rows_nomax", "fused")])
+def test_forward_raw_bf16_matches_jax(mini, monkeypatch, jax_name, port_name):
     params, _ = mini
     monkeypatch.setattr(jfb, "fused_block", functools.partial(jfb.fused_block, interpret=True))
     imgs = _x((2, 3, 32, 40), seed=8)
     want_tok, want_qkv = vit_forward_raw(params, jnp.asarray(imgs), MINI,
-                                         compute_dtype=jnp.bfloat16, block_impl=block_impl)
+                                         compute_dtype=jnp.bfloat16, block_impl=jax_name)
     model = port_model(params, MINI, torch.bfloat16)
-    got_tok, got_qkv = model.forward_raw(torch.from_numpy(imgs), block_impl=block_impl)
+    got_tok, got_qkv = model.forward_raw(torch.from_numpy(imgs), block_impl=port_name)
     for got, want in ((got_tok, want_tok), (got_qkv, want_qkv)):
         want = np.asarray(want, np.float32)
         assert np.abs(got.float().numpy() - want).max() <= 0.02 * np.abs(want).max()

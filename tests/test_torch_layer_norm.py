@@ -29,8 +29,8 @@ from vittf_tpu_torch.ops.attention import multi_head_attention
 from vittf_tpu_torch.ops.layer_norm import (
     MAX_DIM,
     _launch,
-    _layer_norm,
     layer_norm,
+    layer_norm_plain,
     residual,
     residual_layer_norm,
 )
@@ -103,7 +103,7 @@ def test_the_twins_are_the_parents_composition(D, with_gamma, dtype):
     before = layer_norm.launches
     want_x = x + (a * gamma if with_gamma else a)
     assert torch.equal(layer_norm(x, ln), parent_layer_norm(x, ln))
-    assert torch.equal(_layer_norm(x, ln), parent_layer_norm(x, ln))
+    assert torch.equal(layer_norm_plain(x, ln.weight, ln.bias, ln.eps), parent_layer_norm(x, ln))
     got_x, got_y = residual_layer_norm(x, a, gamma, ln)
     assert torch.equal(got_x, want_x)
     assert torch.equal(got_y, parent_layer_norm(want_x, ln))

@@ -42,8 +42,9 @@
 //     with only the weight tiles (L2-resident) streaming through the ring;
 //   - (e), K = the MLP width, streams both operands (gemm_core::ring_product);
 //     so do (a), (c), (d) at D > 512 (ViT-B and wider), where the row block
-//     no longer fits: the LayerNorm is then a launch of its own, once a row,
-//     into the attention buffer, which is free at both points;
+//     no longer fits: the LayerNorm is then a launch of K11's LN mode
+//     (layer_norm.cu, the same rounding points as layer_norm8, D <= 2048),
+//     once a row, into the attention buffer, which is free at both points;
 //   - epilogues run from the accumulator registers, 16 bytes a load and a
 //     store (wgmma_common::quad_transpose), with the card's own tanh in the
 //     GELU.
@@ -63,6 +64,11 @@
 
 #include "attention_core.cuh"
 #include "gemm_core.cuh"
+
+// K11 (layer_norm.cu), built into the same library
+extern "C" int vittf_layer_norm(const void* x, const void* a, const void* gamma, const void* w,
+                                const void* b, void* x_out, void* y_out, long long rows,
+                                int dim, float eps, void* stream);
 
 namespace {
 
@@ -249,36 +255,6 @@ __global__ void __launch_bounds__(kThreads, 1) linear_resident_kernel(GemmArgs p
       });
 }
 
-// LayerNorm of (M, K) rows as a launch of its own (D > kMaxResidentK): a half
-// warp a row, three passes over the row (it stays in L1), layer_norm8's
-// rounding points. Block of 256 threads = 16 rows.
-__global__ void __launch_bounds__(256) layer_norm_kernel(const bf16* __restrict__ x,
-                                                         const bf16* __restrict__ w,
-                                                         const bf16* __restrict__ b,
-                                                         bf16* __restrict__ out, int M, int K) {
-  const int m = blockIdx.x * 16 + (threadIdx.x >> 4), l16 = threadIdx.x & 15;
-  const bf16* row = x + (size_t)min(m, M - 1) * K;  // every lane takes the shuffles
-  float s = 0.f, q = 0.f;
-  for (int c = l16; c < K / 8; c += 16) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + c * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s += bf(e[j]);
-  }
-  const float mu = half_warp_sum(s) / K;
-  for (int c = l16; c < K / 8; c += 16) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + c * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) q += (bf(e[j]) - mu) * (bf(e[j]) - mu);
-  }
-  const float rs = rsqrtf(half_warp_sum(q) / K + 1e-6f);
-  if (m < M)
-    for (int c = l16; c < K / 8; c += 16)
-      *reinterpret_cast<uint4*>(out + (size_t)m * K + c * 8) =
-          layer_norm8(*reinterpret_cast<const uint4*>(row + c * 8), mu, rs, w + c * 8, b + c * 8);
-}
-
 // (e), and every linear at D > kMaxResidentK: one 128 x kBN tile, both
 // operands through the ring
 template <int EPI, int kBN>
@@ -345,13 +321,14 @@ int launch_ring(const GemmArgs& a, cudaStream_t s) {
 }
 
 // A linear with an optional LayerNorm of its input: resident A where the row
-// block fits; else LayerNorm into `normed` (M, K), then the streamed form
+// block fits; else K11's LN mode into `normed` (M, K), then the streamed form
 template <int EPI, bool LN>
 int launch_linear(GemmArgs a, bf16* normed, cudaStream_t s) {
   if (a.K <= kMaxResidentK) return launch_resident<EPI, LN>(a, s);
   if (LN) {
-    layer_norm_kernel<<<(a.M + 15) / 16, 256, 0, s>>>(a.a, a.ln_w, a.ln_b, normed, a.M, a.K);
-    if (int err = (int)cudaGetLastError()) return err;
+    if (int err = vittf_layer_norm(a.a, nullptr, nullptr, a.ln_w, a.ln_b, nullptr, normed, a.M,
+                                   a.K, 1e-6f, s))
+      return err;
     a.a = normed;
   }
   return launch_ring<EPI>(a, s);
@@ -376,13 +353,14 @@ int launch_attention(const bf16* qkv, bf16* out, int B, int N, int n_valid, int 
 //             scratch qkv (B, N, 3D), scratch attn (B, N, D),
 //             scratch x2 (B, N, D), scratch mid (B, N, Hd), out (B, N, D)}.
 // Keys >= n_valid are left out of every softmax. Requires D = 64·H, D and
-// Hd multiples of 128. `launches` is a
+// Hd multiples of 128, D <= 2048 (K11's widest row). `launches` is a
 // mask of the five launches to run, bit 0 = (a) .. bit 4 = (e): 31 for the
 // block, one bit to time a launch alone on buffers a whole run has filled.
 // Returns the first cudaGetLastError() of the launches.
 extern "C" int vittf_fused_block(const void* const* ptrs, int B, int N, int n_valid, int D,
                                  int H, int Hd, int softmax_max, int launches, void* stream) {
-  if (D != H * attention_core::kHd || D % 128 || Hd % 128 || n_valid < 1 || n_valid > N)
+  if (D != H * attention_core::kHd || D % 128 || D > 2048 || Hd % 128 || n_valid < 1 ||
+      n_valid > N)
     return (int)cudaErrorInvalidValue;
   const bf16* const* p = reinterpret_cast<const bf16* const*>(ptrs);
   const bf16 *x = p[0], *ln1_w = p[1], *ln1_b = p[2], *wqkv = p[3], *bqkv = p[4];

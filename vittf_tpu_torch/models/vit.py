@@ -18,9 +18,9 @@ differentiates it, and it takes the plain attention. Per-op blocks
 ``vittf_tpu_torch.ops.attention`` (the CUDA kernel on CUDA tensors), each
 residual add with the LayerNorm after it through
 ``vittf_tpu_torch.ops.layer_norm`` (K11 on bf16 CUDA tensors) and the
-linears as plain ``torch`` matmuls; ``block_impl='fused*'`` runs each
-non-final bf16 block through ``vittf_tpu_torch.ops.fused_block`` (K3). The
-token-GEMM patch embed is a plain ``torch`` matmul.
+linears as plain ``torch`` matmuls; a fused ``block_impl`` (``BLOCK_IMPLS``)
+runs each non-final bf16 block through ``vittf_tpu_torch.ops.fused_block``
+(K3). The token-GEMM patch embed is a plain ``torch`` matmul.
 
 DINOv2's larger models add what the JAX package does not hold (facebookresearch/
 dinov2 ``vision_transformer.py``): a SwiGLU FFN (``ffn='swiglu'``: ``mlp.w12``
@@ -46,7 +46,13 @@ from vittf_tpu_torch.ops.resize import resize_cubic_scaled
 from vittf_tpu_torch.ops.swiglu import swiglu
 
 
-_BLOCK_IMPLS = ("xla", "fused", "fused_rows", "fused_nomax", "fused_rows_nomax")
+# block_impl -> the fused block's softmax_max, None for per-op blocks. The
+# names are ExtractConfig's in both packages. 'fused' skips the softmax row
+# max: min-max and ImageNet-normalized inputs and the LayerNorms bound every
+# block's exp2-domain scores at O(10), far from the ~120 overflow that the
+# row max guards against. 'fused_rows' is 'fused_max' under the name of the
+# TPU's row-grid body, which computes the same values.
+BLOCK_IMPLS = {"xla": None, "fused": False, "fused_max": True, "fused_rows": True}
 
 
 @dataclass(frozen=True)
@@ -227,12 +233,18 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
 
-def check_fused_ffn(cfg: ViTConfig, block_impl: str) -> None:
-    """Raise where ``block_impl`` asks the fused block (K3), which computes a
-    GELU MLP, to run ``cfg``'s SwiGLU blocks."""
-    if block_impl.startswith("fused") and cfg.ffn != "mlp":
+def check_block_impl(cfg: ViTConfig, block_impl: str) -> bool | None:
+    """The fused block's ``softmax_max`` for ``block_impl`` (``BLOCK_IMPLS``),
+    None for per-op blocks. Raises on an unknown name, or where a fused name
+    asks the fused block (K3), which computes a GELU MLP, to run ``cfg``'s
+    SwiGLU blocks."""
+    if block_impl not in BLOCK_IMPLS:
+        raise ValueError(f"unknown block_impl: {block_impl!r} (one of {', '.join(BLOCK_IMPLS)})")
+    softmax_max = BLOCK_IMPLS[block_impl]
+    if softmax_max is not None and cfg.ffn != "mlp":
         raise ValueError(f"the fused block computes a GELU MLP; {cfg.name}'s {cfg.ffn} "
                          f"FFN runs with block_impl='xla'")
+    return softmax_max
 
 
 class SwiGLUFFN(nn.Module):
@@ -341,12 +353,12 @@ class VisionTransformer(nn.Module):
         (B, T+hw, len(capture_thirds)·D) when ``capture_thirds`` narrows
         the projection to those column blocks (q=0, k=1, v=2).
 
-        ``block_impl``: 'xla' (per-op blocks) or 'fused[_rows][_nomax]': the
-        fused block for every block whose output is not captured, when the
-        module is bf16 ('_rows' picks the TPU's row-grid body, the same
-        values; '_nomax' skips the softmax row max). An fp32 module keeps the
-        per-op blocks, as the JAX package does. The fused block computes a
-        GELU MLP: a SwiGLU model raises ``ValueError`` for 'fused*'.
+        ``block_impl``: a name of ``BLOCK_IMPLS``. 'xla' runs per-op blocks;
+        a fused name runs the fused block, with the softmax row max or
+        without it as the table says, for every block whose output is not
+        captured, when the module is bf16. An fp32 module keeps the per-op
+        blocks, as the JAX package does. The fused block computes a GELU MLP:
+        a SwiGLU model raises ``ValueError`` for a fused name.
         """
         return self._forward(images, precision, attn_impl, return_qkv_last, capture,
                              stop_after_capture, capture_thirds, block_impl)
@@ -372,11 +384,9 @@ class VisionTransformer(nn.Module):
     def _forward(self, images, precision, attn_impl, return_qkv_last, capture,
                  stop_after_capture, capture_thirds, block_impl):
         """The forward of ``forward_raw`` and ``forward``."""
-        if block_impl not in _BLOCK_IMPLS:
-            raise ValueError(f"unknown block_impl: {block_impl!r}")
-        check_fused_ffn(self.cfg, block_impl)
+        softmax_max = check_block_impl(self.cfg, block_impl)
         x = self._embed(images)
-        use_fused = block_impl != "xla" and x.dtype == torch.bfloat16
+        use_fused = softmax_max is not None and x.dtype == torch.bfloat16
         qkv_last = None
         depth = len(self.blocks)
         for i, blk in enumerate(self.blocks):
@@ -393,11 +403,7 @@ class VisionTransformer(nn.Module):
                     bias = torch.cat([bias[t * D:(t + 1) * D] for t in capture_thirds])
                 return None, F.linear(y, weight, bias)
             if use_fused and want is None:
-                x = fused_block(
-                    x, blk, self.cfg.num_heads,
-                    impl="rows" if "_rows" in block_impl else "loop",
-                    softmax_max="_nomax" not in block_impl,
-                )
+                x = fused_block(x, blk, self.cfg.num_heads, softmax_max=softmax_max)
                 continue
             x, cap = blk(x, precision, attn_impl, capture=want)
             if cap is not None:

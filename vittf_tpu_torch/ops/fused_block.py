@@ -7,9 +7,11 @@ tanh-GELU → fc2 → LayerScale + residual, in bf16 speed-mode numerics. On
 CUDA tensors ``fused_block`` launches ``csrc/fused_block.cu`` (five
 hand-written launches, every product a warpgroup MMA on the tensor cores:
 the linears on ``csrc/gemm_core.cuh`` with each LayerNorm taken once per
-128-row block, the attention on K1's body ``csrc/attention_core.cuh``); on
-CPU tensors it runs ``fused_block_plain``, per-op torch that rounds where
-the TPU kernel's body (``_row_block_body``) rounds:
+128-row block, or at D > 512 as a launch of K11's LN mode
+(``csrc/layer_norm.cu``), the attention on K1's body
+``csrc/attention_core.cuh``); on CPU tensors it runs ``fused_block_plain``,
+per-op torch that rounds where the TPU kernel's body (``_row_block_body``)
+rounds:
 
 - q/k/v: fp32 accumulation plus bias, then cast; q carries
   (1/√hd)·log2(e), folded into Wq/bq in fp32 before the cast;
@@ -20,15 +22,14 @@ the TPU kernel's body (``_row_block_body``) rounds:
   output = numerator · (1/denominator), then cast;
 - proj, fc1, fc2: fp32 accumulation, cast, then + bias (in the compute
   dtype); residuals add ``branch · gamma`` (ones without LayerScale);
-- LayerNorm statistics in fp32.
+- LayerNorms as ``ops.layer_norm.layer_norm_plain``: statistics in fp32.
 
 The row max runs over the valid keys only (the TPU kernel's zero-score
 padded keys would clamp it at ≥ 0; shift-invariance makes the two equal up
 to rounding); the CUDA kernel carries it as the running max of an online
 softmax, so its p is rounded against the max so far where the twin rounds
-against the final one. ``impl='loop'`` and ``'rows'`` differ on the TPU only
-in grid scheduling and compute the same values, so both reach the same
-kernel here.
+against the final one. The JAX package's two grid schedules (its ``impl``)
+compute the same values, so this package has one kernel and no ``impl``.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from vittf_tpu_torch import kernels
+from vittf_tpu_torch.ops.layer_norm import MAX_DIM, layer_norm_plain
 
 _LOG2E = math.log2(math.e)
 _KERNEL_HEAD_DIM = 64
@@ -114,7 +116,7 @@ def _block_weights(blk, num_heads: int, dtype: torch.dtype) -> FusedBlockWeights
     return cached[1]
 
 
-def _check_args(x, num_heads, n_valid, impl):
+def _check_args(x, num_heads, n_valid):
     B, N, D = x.shape
     hd = D // num_heads
     if hd >= 128:
@@ -123,19 +125,10 @@ def _check_args(x, num_heads, n_valid, impl):
         raise ValueError(
             f"fused_block requires head_dim < 128 (got {hd}); use block_impl='xla'"
         )
-    if impl not in ("loop", "rows"):
-        raise ValueError(f"unknown fused_block impl: {impl!r}")
     nv = N if n_valid is None else n_valid
     if not 0 < nv <= N:
         raise ValueError(f"n_valid={n_valid} outside (0, {N}]")
     return nv
-
-
-def _layer_norm(x, w, b, eps=1e-6):
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = (xf - mu).square().mean(-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
 def _mm(a, w):
@@ -149,16 +142,15 @@ def fused_block_plain(
     blk,
     num_heads: int,
     n_valid: int | None = None,
-    impl: str = "loop",
     softmax_max: bool = True,
 ) -> torch.Tensor:
     """The kernel's math in per-op torch, at the kernel's rounding points.
     Keys at or after ``n_valid`` are left out of every softmax."""
-    nv = _check_args(x, num_heads, n_valid, impl)
+    nv = _check_args(x, num_heads, n_valid)
     w = _block_weights(blk, num_heads, x.dtype)
     B, N, D = x.shape
     dt = x.dtype
-    qkv = (_mm(_layer_norm(x, w.ln1_w, w.ln1_b), w.wqkv) + w.bqkv.float()).to(dt)
+    qkv = (_mm(layer_norm_plain(x, w.ln1_w, w.ln1_b), w.wqkv) + w.bqkv.float()).to(dt)
     q, k, v = qkv.view(B, N, 3, num_heads, D // num_heads).permute(2, 0, 3, 1, 4)
     s = torch.matmul(q.float(), k[:, :, :nv].float().transpose(-1, -2))  # exp2 domain
     p = torch.exp2(s - s.amax(-1, keepdim=True) if softmax_max else s).to(dt)
@@ -166,7 +158,7 @@ def fused_block_plain(
     o = (torch.matmul(p.float(), v[:, :, :nv].float()) * denom.reciprocal()).to(dt)
     a = _mm(o.permute(0, 2, 1, 3).reshape(B, N, D), w.wproj).to(dt) + w.bproj
     x2 = x + a * w.ls1
-    mid = _mm(_layer_norm(x2, w.ln2_w, w.ln2_b), w.wfc1).to(dt) + w.bfc1
+    mid = _mm(layer_norm_plain(x2, w.ln2_w, w.ln2_b), w.wfc1).to(dt) + w.bfc1
     mid = F.gelu(mid, approximate="tanh")
     return x2 + (_mm(mid, w.wfc2).to(dt) + w.bfc2) * w.ls2
 
@@ -176,7 +168,6 @@ def fused_block(
     blk,
     num_heads: int,
     n_valid: int | None = None,
-    impl: str = "loop",
     softmax_max: bool = True,
 ) -> torch.Tensor:
     """Apply one transformer block to (B, N, D) tokens; the CUDA kernel for
@@ -185,9 +176,9 @@ def fused_block(
     ``blk`` is a ``models.vit.Block`` or its hub-named tensors. LayerScale
     gammas apply when present.
     """
-    nv = _check_args(x, num_heads, n_valid, impl)
+    nv = _check_args(x, num_heads, n_valid)
     if x.device.type == "cpu":
-        return fused_block_plain(x, blk, num_heads, n_valid, impl, softmax_max)
+        return fused_block_plain(x, blk, num_heads, n_valid, softmax_max)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block: unsupported device {x.device}")
     w = _block_weights(blk, num_heads, x.dtype)
@@ -206,7 +197,8 @@ def fused_block(
 def check_kernel_shapes(D: int, Hd: int, num_heads: int, dtype: torch.dtype) -> None:
     """Raise on what the CUDA kernel does not take: bf16, head dim 64, D and
     the MLP width ``Hd`` in multiples of 128 (the column tiles are 192 or 128
-    wide, a K chunk 64)."""
+    wide, a K chunk 64), D at most 2048 (above 512 its LayerNorms are
+    launches of ``csrc/layer_norm.cu``, which holds a row of up to 2048)."""
     if D % num_heads or D // num_heads != _KERNEL_HEAD_DIM:
         raise ValueError(f"fused_block kernel supports head dim 64, got {D / num_heads}")
     if dtype != torch.bfloat16:
@@ -214,6 +206,8 @@ def check_kernel_shapes(D: int, Hd: int, num_heads: int, dtype: torch.dtype) -> 
     if D % 128 or Hd % 128:
         raise ValueError(f"fused_block kernel needs D and the MLP width in multiples of 128, "
                          f"got {D}, {Hd}")
+    if D > MAX_DIM:
+        raise ValueError(f"fused_block kernel takes D up to {MAX_DIM}, got {D}")
 
 
 def kernel_buffers(x: torch.Tensor, w: FusedBlockWeights) -> list[torch.Tensor]:

@@ -11,9 +11,12 @@ and writing them once: ``layer_norm`` (LN1, and the stop-after-capture and
 final LayerNorms), ``residual_layer_norm`` (the attention residual and LN2)
 and ``residual`` (the FFN residual). Elsewhere (CPU tensors, the fp32 parity
 mode, ``impl='plain'``, which the trainable forward takes: the kernel has no
-backward) the plain twins ``_layer_norm`` and ``residual_plain`` run. The
+backward) the plain twins ``layer_norm_plain`` and ``residual_plain`` run. The
 kernel rounds where the twins round; its fp32 sums take another order. The
 JAX package has no such kernel: XLA fuses these passes there.
+``layer_norm_plain`` is the package's one plain LayerNorm: the fused block's
+twin (``ops/fused_block.py``) and the tensor- and pipeline-parallel forwards
+(``parallel/``) take it too.
 """
 from __future__ import annotations
 
@@ -25,13 +28,14 @@ _VEC = 8  # bf16 values in the kernel's 16-byte vector
 MAX_DIM = 2048  # the widest row a warp holds in registers (8 vectors a lane)
 
 
-def _layer_norm(x: torch.Tensor, ln) -> torch.Tensor:
-    # statistics in fp32 for bf16 activation runs, then scale/shift in x.dtype
+def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis: the statistics in fp32, the normalized
+    value rounded to x's dtype, then the scale and shift in that dtype."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
-    y = ((xf - mu) * torch.rsqrt(var + ln.eps)).to(x.dtype)
-    return y * ln.weight + ln.bias
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * weight + bias
 
 
 def residual_plain(x: torch.Tensor, a: torch.Tensor, gamma: torch.Tensor | None = None):
@@ -49,9 +53,9 @@ def _plain(x: torch.Tensor, impl: str) -> bool:
 
 def layer_norm(x: torch.Tensor, ln, impl: str = "auto") -> torch.Tensor:
     """LayerNorm over the last axis with ``ln``'s weight, bias and eps: the
-    kernel for a bf16 CUDA tensor under 'auto', ``_layer_norm`` otherwise."""
+    kernel for a bf16 CUDA tensor under 'auto', ``layer_norm_plain`` otherwise."""
     if _plain(x, impl):
-        return _layer_norm(x, ln)
+        return layer_norm_plain(x, ln.weight, ln.bias, ln.eps)
     return _launch(x, None, None, ln)[1]
 
 
@@ -59,7 +63,7 @@ def residual_layer_norm(x, a, gamma, ln, impl: str = "auto"):
     """(x', LN(x')) with x' = x + a·gamma (x + a where gamma is None)."""
     if _plain(x, impl):
         x = residual_plain(x, a, gamma)
-        return x, _layer_norm(x, ln)
+        return x, layer_norm_plain(x, ln.weight, ln.bias, ln.eps)
     return _launch(x, a, gamma, ln)
 
 

@@ -19,8 +19,6 @@ summed by an all-reduce over ``model`` and their biases added once after it.
 """
 from __future__ import annotations
 
-import types
-
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -28,7 +26,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from vittf_tpu_torch.models.vit import ViTConfig, embed_tokens
 from vittf_tpu_torch.ops.attention import multi_head_attention
-from vittf_tpu_torch.ops.layer_norm import _layer_norm
+from vittf_tpu_torch.ops.layer_norm import layer_norm_plain
 
 # each block's split: 'column_heads' splits dim 0 by head within each of q,
 # k and v; 'column' splits dim 0; 'row_heads' / 'row' split dim 1 (the
@@ -94,9 +92,8 @@ def shard_params(params: dict, mesh: DeviceMesh) -> dict[str, torch.Tensor]:
     return {name: _local(t, splits[name], m, r) for name, t in params.items()}
 
 
-def _ln(params: dict, prefix: str):
-    return types.SimpleNamespace(weight=params[f"{prefix}.weight"],
-                                 bias=params[f"{prefix}.bias"], eps=1e-6)
+def _ln(x: torch.Tensor, params: dict, prefix: str) -> torch.Tensor:
+    return layer_norm_plain(x, params[f"{prefix}.weight"], params[f"{prefix}.bias"])
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -123,14 +120,14 @@ def _tp_block(x, p, b, heads_local, precision, attn_impl, group, capture):
     """One pre-LN block with its heads and hidden width split over
     ``group``: ``models.vit.Block`` with the two row products all-reduced
     before their biases."""
-    qkv = F.linear(_layer_norm(x, _ln(p, f"{b}.norm1")), p[f"{b}.attn.qkv.weight"],
+    qkv = F.linear(_ln(x, p, f"{b}.norm1"), p[f"{b}.attn.qkv.weight"],
                    p[f"{b}.attn.qkv.bias"])
     a = multi_head_attention(qkv, heads_local, attn_impl)
     a = _all_reduce(F.linear(a, p[f"{b}.attn.proj.weight"]), group) + p[f"{b}.attn.proj.bias"]
     if f"{b}.ls1.gamma" in p:
         a = a * p[f"{b}.ls1.gamma"]
     x = x + a
-    y = F.linear(_layer_norm(x, _ln(p, f"{b}.norm2")), p[f"{b}.mlp.fc1.weight"],
+    y = F.linear(_ln(x, p, f"{b}.norm2"), p[f"{b}.mlp.fc1.weight"],
                  p[f"{b}.mlp.fc1.bias"])
     y = F.gelu(y, approximate="none" if precision == "highest" else "tanh")
     y = _all_reduce(F.linear(y, p[f"{b}.mlp.fc2.weight"]), group) + p[f"{b}.mlp.fc2.bias"]
@@ -176,4 +173,4 @@ def tp_vit_forward(
                            group, want)
         if cap is not None:
             qkv_last = cap
-    return _layer_norm(x, _ln(p, "norm")), qkv_last
+    return _ln(x, p, "norm"), qkv_last

@@ -13,14 +13,13 @@ are broadcast from it to every stage. The bubble is (P − 1)/(M + P − 1).
 from __future__ import annotations
 
 import functools
-import types
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from vittf_tpu_torch.models.vit import Block, ViTConfig, embed_tokens
-from vittf_tpu_torch.ops.layer_norm import _layer_norm
+from vittf_tpu_torch.ops.layer_norm import layer_norm_plain
 
 
 def stack_block_params(params: dict, n_stages: int) -> dict[str, torch.Tensor]:
@@ -136,5 +135,4 @@ def pp_vit_forward(
     x_out, qkv_out = pp_vit_blocks(stacked, x_micro, cfg, mesh, n_micro, precision, attn_impl)
     x_out = x_out.reshape(B, *x_out.shape[2:])
     qkv_out = qkv_out.reshape(B, *qkv_out.shape[2:])
-    norm = types.SimpleNamespace(weight=params["norm.weight"], bias=params["norm.bias"], eps=1e-6)
-    return _layer_norm(x_out, norm), qkv_out
+    return layer_norm_plain(x_out, params["norm.weight"], params["norm.bias"]), qkv_out

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vittf_tpu_torch.models.vit import ViTConfig, VisionTransformer, check_fused_ffn
+from vittf_tpu_torch.models.vit import ViTConfig, VisionTransformer, check_block_impl
 from vittf_tpu_torch.ops.resize import (
     _adaptive_avg_weight_matrix,
     adaptive_avg_pool,
@@ -66,10 +66,8 @@ class ExtractConfig:
     # grid (the reference's sketched shortcut, infer.py:160-166); NOT
     # artifact-parity with the full sweep.
     slice_subsample: bool = False
-    # 'xla' (per-op blocks) | 'fused' | 'fused_max' | 'fused_rows': the fused
-    # block kernel (bf16 only; 'fused' skips the softmax row max). In this
-    # package 'fused_rows' equals 'fused_max': the TPU's row-grid body
-    # computes the same values, so both run the same kernel with the row max.
+    # a name of models/vit.py's BLOCK_IMPLS: 'xla' (per-op blocks) or a fused
+    # one (the fused block kernel, bf16 only; 'fused' skips the softmax row max)
     block_impl: str = "xla"
 
     def pooling(self, axis_mode: str | None = None) -> bool:
@@ -149,11 +147,6 @@ def _slice_batch_features(
         if imgs.shape[1] == 1:
             imgs = imgs.expand(-1, 3, -1, -1)  # replicate 1→3 (infer.py:154)
         imgs = imagenet_normalize(imgs).to(dtype)
-    # Min-max and ImageNet-normalized inputs and the LayerNorms bound every
-    # block's exp2-domain scores at O(10), far from the ~120 overflow that
-    # the softmax row max guards against: 'fused' skips it, as the JAX
-    # package does; 'fused_max' asks for it.
-    block_impl = {"fused": "fused_nomax", "fused_max": "fused"}.get(block_impl, block_impl)
     # qkv: only the requested thirds of the last block's projection
     thirds = tuple(key_idx) if feature_source == "qkv" else None
     _, qkv = model.forward_raw(
@@ -315,14 +308,6 @@ def _pool_to(feat: torch.Tensor, feat_out_sz: tuple[int, int, int]) -> torch.Ten
     return adaptive_avg_pool(feat, feat_out_sz)
 
 
-def _check_block_impl(block_impl: str, model_cfg: ViTConfig) -> None:
-    """Raise on an unknown ``block_impl``, or a fused one for a SwiGLU model,
-    before the model is built."""
-    if block_impl not in ("xla", "fused", "fused_max", "fused_rows"):
-        raise ValueError(f"unknown block_impl: {block_impl!r}")
-    check_fused_ffn(model_cfg, block_impl)
-
-
 def _build_model(
     params: dict, model_cfg: ViTConfig, compute_dtype: str, device, grayscale: bool
 ) -> VisionTransformer:
@@ -364,7 +349,7 @@ def _extract(vol, params, model_cfg, cfg, device, select=None, reduce=None):
     """``extract_features``, each sweep over the slice batches ``select``
     picks, its accumulators combined by ``reduce`` (``_extract_axis``)."""
     with span("features.extract"):
-        _check_block_impl(cfg.block_impl, model_cfg)
+        check_block_impl(model_cfg, cfg.block_impl)
         if cfg.feature_source not in ("qkv", "mlp"):
             raise ValueError(f"unknown feature_source: {cfg.feature_source!r}")
         device = resolve_device(device)

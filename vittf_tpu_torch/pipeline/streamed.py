@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vittf_tpu_torch.models.vit import ViTConfig
+from vittf_tpu_torch.models.vit import ViTConfig, check_block_impl
 from vittf_tpu_torch.pipeline.features import (
     _KEEP_DTYPES,
     ExtractConfig,
@@ -23,7 +23,6 @@ from vittf_tpu_torch.pipeline.features import (
     _axis_geometry,
     _axis_pool,
     _build_model,
-    _check_block_impl,
     _new_accumulators,
     _pool_to,
     _pooled_to_volume,
@@ -47,7 +46,7 @@ def extract_features_streamed(
     batch_size`` raw slices. Returns {key: (F, o0, o1, o2) fp32 tensor on
     ``device``}, the first CUDA device when it is None.
     """
-    _check_block_impl(cfg.block_impl, model_cfg)
+    check_block_impl(model_cfg, cfg.block_impl)
     vol = np.asarray(vol)
     if vol.ndim != 3:
         raise ValueError("streamed extraction handles scalar (W, H, D) volumes")

@@ -224,6 +224,11 @@ FAULTS = [
        "    e[j] = __float2bfloat16(y + bf(be[j]));")]),
     ("K3 gemm: LayerNorm rows staged one chunk to the right", "fused_block",
      [(FB, "wgmma_common::swz(r, c & 7));", "wgmma_common::swz(r, (c + 1) & 7));")]),
+    # at D > 512 the LayerNorms are launches of K11's LN mode into the scratch
+    ("K3 gemm: LayerNorm at D > 512 never read (rows streamed as they are)", "fused_block",
+     [(FB, "    a.a = normed;\n", "")]),
+    ("K3 gemm: LayerNorm eps 1e-2 at D > 512", "fused_block",
+     [(FB, "a.K, 1e-6f, s))", "a.K, 1e-2f, s))")]),
     ("K3 gemm: residual from the attention buffer", "fused_block",
      [(FB, "{attn, wproj, bproj, nullptr, nullptr, ls1, x, x2, M, D, D}",
        "{attn, wproj, bproj, nullptr, nullptr, ls1, attn, x2, M, D, D}")]),
