@@ -38,7 +38,8 @@ quality harness and the multi-device layer. Phases:
    where their 16-byte runs meet ragged edges (tiny and misaligned classes,
    65 535 classes, ranks 1 and 2, knife edges at σ_l 7), the blocked splat
    and slice with one row per cell on a 2048 × 2048 image (σ_s 24, σ_l 4: 576
-   pixels per cell, 64 bins), and a 2-D solve through the kernels vs plain;
+   pixels per cell, 64 bins), and a 2-D solve through the kernels vs the
+   plain splat and slice twins around the same K12 solve (1e-4, 1e-5);
    the blur bit-equal to its twin on CPU tensors, on the card and to its
    repeat (output poisoned with NaN), there and on ``blur_edge_cases`` (L 37,
    52, 64; X 1, 3, 19; ranks 2-4; 1 or 5 classes; blur dim 5; an input off a
@@ -49,6 +50,16 @@ quality harness and the multi-device layer. Phases:
    an event pair, one call beside it, the blur and both transposes beside a
    copy floor
    (``out.copy_(src)`` of as many bytes: no library call computes them);
+4a. lattice solve (K12, ``phase_lattice_solve``): one launch of the solve's
+   bistochastization and 25 Jacobi-PCG steps against its plain twin, the
+   per-op ``_lattice_solve`` around K8, on the card (the witness), at the
+   refined edit cell's lattice, at B = 2 with one class that has converged
+   before the first step, at the whole-grid chunk (4, 37, 37, 37, 52;
+   streamed) and at the 2-D solver's (1, 86, 86, 64), blur dim 5: ŷ within
+   1e-4 of max|ŷ|, the quantized uint8 maps apart on at most 0.2% of the
+   voxels, each call equal to its repeat and a graph replay equal to the
+   eager launch bit for bit; one launch a call; timed ten calls an event
+   pair beside its bound and the witness, eager and as a graph replay;
 5. fused block kernel vs plain at (8, 4097, 384) bf16, held on loud weights
    (``loud_params``: every term reaches the output; the branch out − x is
    compared at 0.02·max|branch|) without the softmax row max and, on a block
@@ -125,7 +136,7 @@ quality harness and the multi-device layer. Phases:
    served session keeps it, twice (a key's first request runs its refine
    core eager, its second captures it, later ones and the second round
    replay), then once more without the reference (each request uploads and
-   resizes the volume); the splat, slice and blur counters must have risen,
+   resizes the volume); the splat, slice and lattice-solve counters must have risen,
    the last request's maps agree with the plain twins' (|Δ| ≤ 1 on ≤ 1e-3
    of the voxels) and equal their own repeat, second round and run without
    the reference bit for bit; what the graph cache did per request; then,
@@ -173,8 +184,9 @@ quality harness and the multi-device layer. Phases:
     ``annotations.npy`` four times (five classes; one class edited; a class
     added; cleared); every answer is held against a fresh recompute (bit-equal
     without the solver; with it within 1e-3, the recompute bit-equal to its
-    repeat, bit-equal to the kernel's similarities through the plain twins'
-    solve with a deterministic ``index_add_``, those similarities within
+    repeat, bit-equal to the kernel's similarities through the plain splat
+    and slice twins, with a deterministic ``index_add_``, around K12's
+    solve, those similarities within
     phase 3's contract of the twin's, and within ±1 of the plain route made
     so); the start-up warm-up's and the first refined edit's refine cores
     equal their witness; what the graph cache did per edit;
@@ -194,7 +206,7 @@ quality harness and the multi-device layer. Phases:
     and ``refinement_quality_experiment`` at 128³ (fos 32) on the random
     ViT-S/8 (per-op blocks) and on 14b's trained weights (fused blocks):
     mIoU, stage times, the launch counters (the attention or fused block,
-    similarity, splat, slice and blur kernels must have run); ``ntf_predict``
+    similarity, splat, slice and lattice-solve kernels must have run); ``ntf_predict``
     (fp32) through the kernels vs the plain twins on the card, predictions
     apart on at most 1e-3 of the voxels;
 14d. multi-device layer (``phase_parallel``), one rank on NCCL: the sharded
@@ -287,7 +299,9 @@ from vittf_tpu_torch.ops.bilateral import (
     bls_splat_plain,
     bls_unreblock,
     bls_unreblock_plain,
+    lattice_solve,
 )
+from vittf_tpu_torch.ops import bilateral as bilateral_module
 from vittf_tpu_torch.ops.chain_gemm import MODES as CHAIN_MODES
 from vittf_tpu_torch.ops.chain_gemm import chain_gemm, chain_gemm_plain, wrap_int8
 from vittf_tpu_torch.ops.fused_block import (
@@ -298,6 +312,7 @@ from vittf_tpu_torch.ops.fused_block import (
     launch_kernel,
 )
 from vittf_tpu_torch.ops import layer_norm as ln_ops
+from vittf_tpu_torch.ops.morphology import filter_sobel_separated
 from vittf_tpu_torch.ops.similarity import class_mean_matrix, similarity, similarity_plain
 from vittf_tpu_torch.ops.swiglu import swiglu, swiglu_plain
 from vittf_tpu_torch.pipeline.annotations import annotations_from_labels
@@ -337,6 +352,7 @@ from vittf_tpu_torch.pipeline.ntf import (
     compute_similarities,
     fuse_predictions,
     fuse_predictions_host,
+    quantize_uint8_torch,
 )
 from vittf_tpu_torch.pipeline.refine import make_bls_reference, refine_similarities_batched
 from vittf_tpu_torch.scripts import bench_int8_gemm
@@ -355,7 +371,7 @@ BLOCK_SHAPE = (8, 4097, 384)  # the same slice batch as tokens of width D
 LOUD_PEAK, K_SHIFT = 4.0, 80.0  # loud_params' Wq/Wk scale; the row-max case's k-bias scale
 SIM_N, SIM_F, SIM_PER_CLASS, SIM_C = 64**3, 384, 256, 5
 BLS_SS, BLS_SL, BLS_C = 7, 5, 5  # the refinement's grid (pipeline/refine.py) and 5 classes
-BLS_KERNELS = (bls_splat, bls_slice, bls_blur)
+BLS_KERNELS = (bls_splat, bls_slice, lattice_solve)
 BLOCKED_KERNELS = (bls_reblock, bls_unreblock, bls_splat_blocked, bls_slice_blocked)
 GRAPHS = cuda_graphs.GRAPHS  # captured solves and refine cores: hits, misses, eager, entries
 BLS2D_SS, BLS2D_SL = 24, 4  # the 2-D solver's default grid
@@ -745,13 +761,15 @@ def phase_bilateral(gen):
     blur_lattice_rows(gen)
     reblock_edge_cases(gen)
     phase_blocked_2d_kernels(gen)
-    # a 2-D solve: the blocked kernels take it with one row per cell (blur dim 5)
+    # a 2-D solve: the blocked kernels take it with one row per cell (blur dim 5);
+    # the plain twins' side solves with K12 too (phase 4a holds K12 apart)
     img = torch.randint(0, 256, (96, 80), generator=gen).float().to("cuda")
     t2, c2 = (torch.rand((96, 80), generator=gen).to("cuda") for _ in range(2))
     kw = dict(sigma_spatial=3, sigma_luma=8, blur_dim=5)
-    err = check_close("2-D solve", bilateral_solve_gray(t2, img, c2, **kw),
-                      bilateral_solve_gray(t2, img, c2, pixel_impl="scatter", **kw), 1e-4, 1e-5)
-    print(f"2-D bilateral solve (96, 80) kernels vs plain: max_abs_err {err}")
+    with k12_in_scatter():
+        plain = bilateral_solve_gray(t2, img, c2, pixel_impl="scatter", **kw)
+    err = check_close("2-D solve", bilateral_solve_gray(t2, img, c2, **kw), plain, 1e-4, 1e-5)
+    print(f"2-D bilateral solve (96, 80) kernels vs the plain twins around K12: max_abs_err {err}")
     return out
 
 
@@ -958,6 +976,142 @@ def phase_blocked_2d_kernels(gen):
           f"slice exact kernel {ms['slice']} ms (one call {one['slice']}) plain "
           f"{ms['slice_plain']} ms gather {ms['gather']} ms (one call {one['gather']}); "
           f"slice bound {bound} ms")
+
+
+K12_ERR = 1e-4  # |ŷ - witness| as a share of max|ŷ|: the dots' fp32 order through 25 CG steps
+K12_MAP_SHARE = 2e-3  # uint8 maps of K12 and its witness apart by 1 on at most this share
+# the refined edit cell's crop: one class of the 128³ sim grid, bucketed to 8, is
+# the whole grid in 2,282 of 2,283 refine cores of a 10 s window (the other: the
+# start-up's five classes at the same crop); a (1, 19, 19, 19, 52) lattice
+K12_CELL_CROP = (128, 128, 128)
+
+
+def lattice_solve_ops(B, nverts, bistoch_iters=10, cg_maxiter=25) -> int:
+    """K12's fp32 operations: a vertex's blur is 9, a bistochastization
+    step 12, the set-up 39 (m_b, a_diag, the start, r, z and their dots),
+    a CG step 29 (A p and its dot 16, x, r, z and two dots 9, p 4)."""
+    return B * nverts * (12 * bistoch_iters + 39 + 29 * cg_maxiter)
+
+
+def captured(fn):
+    """(graph, output) of ``fn()`` captured on a side stream after one eager
+    call (which sets the kernels' attributes before the capture)."""
+    fn()
+    torch.cuda.synchronize()
+    cur, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        out = fn()
+        graph.capture_end()
+    cur.wait_stream(side)
+    return graph, out
+
+
+def quantized(y, luma, ext, ss, sl):
+    """The lattice values ``y`` (B, nverts) sliced to the voxels of ``luma``
+    and quantized as the refine core does (255 / (0.99 · the class's max))."""
+    out = torch.nan_to_num(bls_slice(luma, y.reshape(y.shape[0], -1, ext[-1]).contiguous(), ss,
+                                     sl))
+    quant = torch.clamp(0.99 * out.flatten(1).amax(dim=1), min=1e-30)
+    return quantize_uint8_torch(255.0 / quant.reshape((-1,) + (1,) * (out.ndim - 1)) * out)
+
+
+def lattice_case(seed, crop, C, ss, sl, zero_class=False):
+    """(luma, splat planes m, w, b, lattice extents) of ``C`` classes: 3-D
+    crops of ``whole_grid_case`` with the refine core's Sobel confidence, or
+    a 2-D ``phantom2d`` image with the 2-D solver's constant one;
+    ``zero_class`` zeroes the last class's target (its b = 0: the class has
+    converged before the first CG step, as an empty class of a chunk has)."""
+    if len(crop) == 2:
+        r, t = phantom2d(crop[0], seed)
+        luma, t, conf = r[None], t[None], torch.full_like(t, 0.999)[None]
+    else:
+        ref, sims = whole_grid_case(max(crop), seed, C)
+        box = (slice(None),) + tuple(slice(0, n) for n in crop)
+        luma = ref.float()[None].expand(sims.shape)[box].contiguous()
+        t = sims[box].contiguous()
+        sob = filter_sobel_separated(luma[:, None] / 255.0).reshape(luma.shape)
+        conf = sob.flatten(1).amax(dim=1).reshape((-1, 1, 1, 1)) - sob
+    if zero_class:
+        t[-1] = 0.0
+    ext = _grid_extents(crop, ss, sl)
+    m, w, b = bls_splat(luma, t, conf, ss, sl).reshape(luma.shape[0], 3, -1).unbind(1)
+    return luma, m, w, b, ext
+
+
+def hold_lattice_solve(label, luma, m, w, b, ext, ss, sl, blur_dim=6):
+    """K12 against its witness, the per-op ``_lattice_solve`` around K8 on
+    the card: ŷ within ``K12_ERR`` of max|ŷ|, the quantized maps apart on at
+    most ``K12_MAP_SHARE`` of the voxels, a repeat and a graph replay
+    bit-equal to the call, one launch a call; timed ten calls an event pair
+    beside its bound; K12 as a graph replay and the witness eager and as a
+    graph replay (the solve's cost before K12), one call between two
+    events. Returns its ``kernel_entry``: max|ŷ - witness| as its
+    ``max_abs_err``, the witness's replay as its plain time."""
+    kw = dict(lam=256.0, A_diag_min=1e-5, cg_tol=1e-5, cg_maxiter=25, bistoch_iters=10,
+              blur_dim=blur_dim)
+    B, nverts = m.shape
+    before = lattice_solve.launches
+    got = poisoned(lambda: lattice_solve(m, w, b, ext, **kw), (B, nverts))
+    torch.cuda.synchronize()
+    if lattice_solve.launches - before != 1:
+        raise AssertionError(f"lattice solve {label}: {lattice_solve.launches - before} launches")
+    want = _lattice_solve(m, w, b, ext, **kw)
+    peak, abs_err = want.abs().max().item(), (got - want).abs().max().item()
+    err = abs_err / peak
+    share = (quantized(got, luma, ext, ss, sl) != quantized(want, luma, ext, ss, sl)
+             ).float().mean().item()
+    if not (err <= K12_ERR and share <= K12_MAP_SHARE and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"lattice solve {label}: |ŷ - witness| {err} of max|ŷ| {peak}, "
+                             f"maps differ on {share} of the voxels")
+    assert_equal(f"lattice solve {label}: repeat", lattice_solve(m, w, b, ext, **kw), got)
+    graph, out = captured(lambda: lattice_solve(m, w, b, ext, **kw))
+    out.fill_(float("nan"))
+    graph.replay()
+    assert_equal(f"lattice solve {label}: graph replay", out, got)
+    ms = ten_call_ms(lambda: lattice_solve(m, w, b, ext, **kw))
+    replay_ms = cuda_ms(graph.replay)
+    del graph, out
+    wgraph, _ = captured(lambda: _lattice_solve(m, w, b, ext, **kw))
+    witness_graph_ms = cuda_ms(wgraph.replay)
+    del wgraph
+    witness_ms = cuda_ms(lambda: _lattice_solve(m, w, b, ext, **kw), reps=3)
+    entry = kernel_entry(abs_err, ms, witness_graph_ms, 16 * B * nverts,
+                         lattice_solve_ops(B, nverts), "fp32")
+    plan = bilateral_module._solve_plan(
+        B, nverts, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"lattice solve {label} {(B,) + tuple(ext)}, "
+          f"{'resident' if plan[0].resident else 'streamed'}, {plan[0].segments} segments of "
+          f"{plan[0].seg} vertices a class: |ŷ - witness| max {err} of max|ŷ| {peak}; uint8 "
+          f"maps differ on {share} of the voxels; repeat and graph replay bit-equal; K12 {ms} ms "
+          f"(as a graph replay {replay_ms} ms; bound {entry['bound_ms']} ms by "
+          f"{entry['bound_by']}); witness as a graph replay {witness_graph_ms} ms, eager "
+          f"{witness_ms} ms")
+    return entry
+
+
+def phase_lattice_solve(gen):
+    """K12 (``hold_lattice_solve``) at the refined edit cell's lattice
+    (``K12_CELL_CROP``: one class, resident), at B = 2 with a class that
+    has converged before the first step (the per-class freeze; a 64³ crop),
+    at the whole-grid chunk (four classes of a 256³ grid, streamed) and at
+    the 2-D solver's (2048², blur dim 5). Returns the cell lattice's
+    entry."""
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
+    chunk = 70_000_000 // 256**3  # pipeline/refine.py: VITTF_BLS_CHUNK_VOXELS // crop voxels
+    cases = [("refined edit cell", K12_CELL_CROP, 1, BLS_SS, BLS_SL, 6, False),
+             ("two classes, the second converged", (64,) * 3, 2, BLS_SS, BLS_SL, 6, True),
+             ("whole-grid chunk", (256,) * 3, chunk, BLS_SS, BLS_SL, 6, False),
+             ("2-D solver", (2048, 2048), 1, BLS2D_SS, BLS2D_SL, 5, False)]
+    entries = []
+    for label, crop, C, ss, sl, blur_dim, zero in cases:
+        luma, m, w, b, ext = lattice_case(seed, crop, C, ss, sl, zero)
+        entries.append(hold_lattice_solve(label, luma, m, w, b, ext, ss, sl, blur_dim))
+        del luma, m, w, b
+        torch.cuda.empty_cache()
+    return entries[0]
 
 
 def loud_params(seed: int, peak: float) -> tuple:
@@ -1567,8 +1721,10 @@ def bls_requests(vol, feat_t, anns, impl="auto", ref=None):
 
 def phase_refinement(seed, workdir: Path, vol, labels, feat_t):
     """The refinement path: the CLI with per-class tight crops and the
-    island filter, then refined requests with bucketed batched crops."""
-    for fn in BLS_KERNELS:
+    island filter, then refined requests with bucketed batched crops.
+    Returns the launches of ``BLS_KERNELS`` over both and K8's, which must
+    be none: the kernel forms' solve is K12, K8's stencil inside it."""
+    for fn in BLS_KERNELS + (bls_blur,):
         fn.launches = 0
     since = graph_counts()
     t0 = time.perf_counter()
@@ -1594,7 +1750,7 @@ def phase_refinement(seed, workdir: Path, vol, labels, feat_t):
     with timed_captures() as caps:
         reqs = bls_requests(vol, feat_t, anns, ref=ref)
         replays = bls_requests(vol, feat_t, anns, ref=ref)
-    n_all = [fn.launches for fn in BLS_KERNELS]
+    n_all, n_k8 = [fn.launches for fn in BLS_KERNELS], bls_blur.launches
     # the same requests again, each building the reference from the volume
     noref = bls_requests(vol, feat_t, anns)
     n_req = [a - b for a, b in zip(n_all, n_cli)]
@@ -1625,13 +1781,13 @@ def phase_refinement(seed, workdir: Path, vol, labels, feat_t):
           f"differ by 1; its repeat, its second round and its run without the reference are "
           f"bit-equal")
     print(f"refinement path, requests: {graph_line(since)}")
-    print(f"launches (splat, slice, blur): CLI {n_cli}, requests {n_req}")
-    if min(n_cli) == 0 or min(n_req) == 0:
-        raise AssertionError(f"a bilateral kernel was not launched: CLI {n_cli}, requests {n_req}")
+    print(f"launches (splat, slice, lattice solve): CLI {n_cli}, requests {n_req}; blur {n_k8}")
+    if min(n_cli) == 0 or min(n_req) == 0 or n_k8:
+        raise AssertionError(f"bilateral launches: CLI {n_cli}, requests {n_req}, blur {n_k8}")
     # an eager first sighting, a capture, then replays on the other draws where
     # they crop to its bucketed shape (all three do here), with other starts
     witness_fresh("refined request", lambda: bls_requests(vol, feat_t, anns * 2, ref=ref))
-    return n_all
+    return n_all, n_k8
 
 
 def phase_whole_grid(seed):
@@ -2021,12 +2177,32 @@ def serve_frames(labels, seed, n=256):
     return [ann, second, third, {}]
 
 
-def plain_solve(vol, feat_t, classes, ref, impl) -> tuple[dict, torch.Tensor]:
+def k12_in_scatter():
+    """A context in which ``pixel_impl='scatter'`` keeps its plain splat and
+    slice twins but solves on the lattice with K12 (``lattice_solve``), as
+    the kernel forms do: it holds a route's pixel↔lattice transfers apart
+    from its solve, which phase 4a holds against its twin. The plain splat's
+    planes interleave, so K12 takes contiguous copies of them."""
+    real = bilateral_module._pixel_ops
+
+    def k12(m, w_splat, b, *args, **kw):
+        return lattice_solve(m.contiguous(), w_splat.contiguous(), b.contiguous(), *args, **kw)
+
+    def ops(pixel_impl, rank):
+        form, solve = real(pixel_impl, rank)
+        return (form, k12 if form == "scatter" else solve)
+
+    return mock.patch.object(bilateral_module, "_pixel_ops", ops)
+
+
+def plain_solve(vol, feat_t, classes, ref, impl, k12=False) -> tuple[dict, torch.Tensor]:
     """``classes`` through the refined route with the similarity of ``impl``
     ('auto': the kernel; 'plain': its twin) and the plain twins' solve
     (``pixel_impl='scatter'``) under deterministic algorithms, where the
     card's ``index_add_`` sums in the ascending order the splat kernels
-    take. Returns the uint8 maps and the float similarities solved."""
+    take; ``k12``: the plain splat and slice twins around K12's solve
+    (``k12_in_scatter``). Returns the uint8 maps and the float similarities
+    solved."""
     real, solved = refine_module.refine_similarities_batched, []
 
     def solve(sims, volume, sim_shape, **kw):
@@ -2039,7 +2215,8 @@ def plain_solve(vol, feat_t, classes, ref, impl) -> tuple[dict, torch.Tensor]:
         finally:
             torch.use_deterministic_algorithms(was[0], warn_only=was[1])
 
-    with mock.patch.object(refine_module, "refine_similarities_batched", solve):
+    with mock.patch.object(refine_module, "refine_similarities_batched", solve), \
+            (k12_in_scatter() if k12 else contextlib.nullcontext()):
         maps = compute_similarities(vol, feat_t, classes, bilateral_solver=True,
                                     bls_shape_bucket=8, bls_ref_u8=ref, impl=impl,
                                     mean_first=False)
@@ -2057,8 +2234,9 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
     no kernel of the route sums with atomics. A wrong crop, class or stale
     map moves values by more than 1. The route is bounded in its two halves
     apart (ROADMAP §C 15): each edited map must equal, bit for bit, the
-    kernel's similarities through the plain twins' solve with ``index_add_``
-    deterministic (``plain_solve``), and those similarities must lie within
+    kernel's similarities through the plain splat and slice twins, with
+    ``index_add_`` deterministic, around K12's solve (``plain_solve``; K12
+    against its per-op twin is phase 4a's), and those similarities must lie within
     phase 3's contract (1e-4, 1e-5) of the plain twin's; the map's distance
     (±1) to the whole plain route made deterministic is printed (the solve
     turns a few ulps of similarity into ±1 on up to 1.9e-3 of a map's
@@ -2141,7 +2319,7 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
             fresh, again = (compute_similarities(
                 vol, feat_t, edited, bilateral_solver=True, bls_shape_bucket=8, bls_ref_u8=ref,
                 mean_first=False) for _ in range(2))
-            witness, sims_kernel = plain_solve(vol, feat_t, edited, ref, "auto")
+            witness, sims_kernel = plain_solve(vol, feat_t, edited, ref, "auto", k12=True)
             det_plain, sims_plain = plain_solve(vol, feat_t, edited, ref, "plain")
             check_close(f"serve answer {i}: the similarity kernel vs its plain twin",
                         sims_kernel, sims_plain, 1e-4, 1e-5)
@@ -2152,7 +2330,7 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
                 if k in edited:
                     n_diff.append(check_u8_maps(f"serve answer {i} map {k}", got, fresh[k]))
                     assert_equal(f"repeat of request {i} map {k}", again[k], fresh[k])
-                    assert_equal(f"serve answer {i} map {k} vs the plain twins' solve",
+                    assert_equal(f"serve answer {i} map {k} vs the plain twins around K12",
                                  got, witness[k])
                     n_det.append(check_u8_maps(f"serve answer {i} map {k} vs the plain "
                                                "twins' deterministic route", got,
@@ -2166,11 +2344,12 @@ def phase_served(seed, workdir: Path, vol, labels, feats_path: Path, n=256):
                 f"{[x * 1e3 for x in secs]} ms (graph cache per edit, the first with the start-up "
                 f"warm-up: {kinds}; the captures alone {caps} ms; {cache}; the warm-up's and "
                 f"the first edit's answers equal their witness: {held}); launches (similarity, "
-                f"splat, slice, blur) {launches[-1]}; ")
+                f"splat, slice, lattice solve) {launches[-1]}; ")
         print(line + (f"voxels of {sim_shape} that differ by 1, per edited map: answer vs a "
                       f"fresh recompute {n_diff} (the recompute equals its repeat bit for bit, "
-                      f"and the plain twins' deterministic solve of the kernel's similarities "
-                      f"equals every answer bit for bit, the kernel's similarities within "
+                      f"and the plain splat and slice twins made deterministic around K12, on "
+                      f"the kernel's similarities, equal every answer bit for bit, the kernel's "
+                      f"similarities within "
                       f"{sim_err} of the twin's largest, per edit), vs the plain twins' route made "
                       f"deterministic {n_det}; mean |delta| to a full recompute of all classes "
                       f"per map {full_dev}" if solver else "every map and prediction equals a full "
@@ -3226,7 +3405,7 @@ def phase_quality(seed, trained, size=128):
     blocks: the attention kernel) and on the weights trained in 5e (fused
     blocks: the fused block kernel); mIoU, stage times and the launch
     counters of each run, which must show the attention or fused block, the
-    similarity, splat, slice and blur kernels. Then ``ntf_predict`` in
+    similarity, splat, slice and lattice-solve kernels. Then ``ntf_predict`` in
     parity mode (fp32) through the kernels and through the plain twins on
     the card: the predictions differ on at most 1e-3 of the voxels (phase
     6's knife-edge share)."""
@@ -3245,7 +3424,8 @@ def phase_quality(seed, trained, size=128):
             size, seed=seed, features=feats, feature_source=f"vit-{label}", device="cuda"))
         n = {fn.__name__: fn.launches for fn in counted}
         block = "attention" if block_impl == "xla" else "fused_block"
-        if min(n[block], n["similarity"], n["bls_splat"], n["bls_slice"], n["bls_blur"]) == 0:
+        if min(n[block], n["similarity"], n["bls_splat"], n["bls_slice"],
+               n["lattice_solve"]) == 0:
             raise AssertionError(f"quality {label}: a kernel was not launched: {n}")
         print(f"quality {label} weights ({block_impl} blocks), {size}^3 easy phantom, fos "
               f"{size // 4}: fast-mode A/B mIoU full {fast['full']['mIoU_fg']} fast "
@@ -3520,6 +3700,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(args.seed)
     entries = {"attention": phase_attention(gen), "similarity": phase_similarity(gen)}
     entries.update(phase_bilateral(gen))
+    entries["lattice_solve"] = phase_lattice_solve(gen)
     entries["fused_block"] = phase_fused_block(gen)
     entries["chain_gemm"] = phase_chain_gemm()
     entries["swiglu"] = phase_swiglu(gen)
@@ -3532,7 +3713,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vittf_smoke_") as tmp:
         n_attn, n_sim, vol, labels, feat_t = phase_main_path(args.seed, Path(tmp))
         n_k3 = phase_fused_path(args.seed, Path(tmp))
-        n_bls = phase_refinement(args.seed, Path(tmp), vol, labels, feat_t)
+        n_bls, n_k8 = phase_refinement(args.seed, Path(tmp), vol, labels, feat_t)
         del feat_t
         phase_core_witness(args.seed)
         phase_capture_parts(args.seed)
@@ -3557,7 +3738,9 @@ def main() -> int:
         ("similarity", "similarity.cu", "vittf_tpu/ops/similarity.py:109", n_sim),
         ("bls_splat", "bilateral.cu", "vittf_tpu/ops/bilateral.py:333", n_bls[0]),
         ("bls_slice", "bilateral.cu", "vittf_tpu/ops/bilateral.py:412", n_bls[1]),
-        ("bls_blur", "bilateral.cu", "vittf_tpu/ops/bilateral.py:495", n_bls[2]),
+        ("bls_blur", "bilateral.cu", "vittf_tpu/ops/bilateral.py:495", n_k8),
+        ("lattice_solve", "lattice_solve.cu", "vittf_tpu/ops/bilateral.py:495 (the blur, inside "
+         "the solve's loops that XLA fuses under jit)", n_bls[2]),
         ("fused_block", "fused_block.cu", "vittf_tpu/ops/fused_block.py:292", n_k3),
         ("bls_reblock", "bilateral_reblock.cu", "vittf_tpu/ops/bilateral.py:104", n_blocked[0]),
         ("bls_unreblock", "bilateral_reblock.cu", "vittf_tpu/ops/bilateral.py:165", n_blocked[1]),
@@ -3570,7 +3753,8 @@ def main() -> int:
         ("layer_norm", "layer_norm.cu", "none (the per-op block's residual adds and "
          "LayerNorms, which XLA fuses)", n_ln),
     ]
-    if min(n for *_, n in kernel_list) == 0:
+    # K8 launches no time on the main path: its stencil runs inside K12 there
+    if min(n for name, *_, n in kernel_list if name != "bls_blur") == 0:
         raise AssertionError(f"a kernel was launched no time on its path: {kernel_list}")
     print(f"graphs over the whole run: {graph_line((0, 0, 0))}")
     print(smi)

@@ -96,6 +96,33 @@ def test_cpu_route_is_the_eager_body_and_matches_jax(rank, coarse_to_fine):
     np.testing.assert_allclose(got[0].numpy(), want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("rank,with_y0", [(3, False), (3, True), (2, False)])
+def test_cpu_lattice_solve_is_the_per_op_twin_and_matches_jax(rank, with_y0):
+    """K12's wrapper on CPU tensors is the per-op ``_lattice_solve`` around
+    the plain blur, bit for bit, counting no launch; per class it is the
+    JAX ``_lattice_solve`` at the solve's 2e-4 (a structured splat, with
+    and without the coarse-to-fine start)."""
+    t, luma, c = _structured_case(18, 5)
+    if rank == 2:
+        t, luma, c = (a[9] for a in (t, luma, c))
+    ss, sl, dim = 4, 5, (jb._BLUR_DIM if rank == 3 else jb._BLUR_DIM_2D)
+    ext = tb._grid_extents(t.shape, ss, sl)
+    planes = tb.bls_splat_plain(*(torch.from_numpy(np.stack([a, a[::-1].copy()]))
+                                  for a in (luma, t, c)), ss, sl)
+    m, w, b = planes.reshape(2, 3, -1).unbind(1)
+    y0 = torch.where(m > 0, b / w.clamp(min=1e-3), 0.0) if with_y0 else None
+    kw = dict(lam=256.0, A_diag_min=1e-5, cg_tol=1e-5, cg_maxiter=25, bistoch_iters=10,
+              blur_dim=dim)
+    before = tb.lattice_solve.launches
+    got = tb.lattice_solve(m, w, b, ext, **kw, y0=y0)
+    assert tb.lattice_solve.launches == before
+    assert torch.equal(got, tb._lattice_solve(m, w, b, ext, **kw, blur=tb._blur, y0=y0))
+    for k in range(2):
+        want = jb._lattice_solve(*(jnp.asarray(v[k].numpy()) for v in (m, w, b)), ext, **kw,
+                                 y0=None if y0 is None else jnp.asarray(y0[k].numpy()))
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
 def test_graphed_solve_refuses_inputs_the_kernels_refuse():
     """The static buffers take any input copy_ broadcasts; the eager kernels
     do not, so the graph route refuses them before it captures."""

@@ -9,7 +9,7 @@ from vittf_tpu_torch.scripts import kernel_variants as kv
 
 FAULTS = [(name, edits) for name, _, edits in kv.FAULTS if edits]
 CASES = FAULTS + [v for v in kv.ATTENTION_ABLATION + kv.SIMILARITY_ABLATION + kv.GEMM_ABLATION
-                  + kv.BILATERAL_ABLATION if v[1]]
+                  + kv.BILATERAL_ABLATION + kv.LATTICE_SOLVE_ABLATION if v[1]]
 
 
 @pytest.mark.parametrize("name,edits", CASES, ids=[c[0] for c in CASES])
@@ -22,7 +22,7 @@ def test_edit_applies_exactly_once(name, edits):
 
 def test_every_redesigned_kernel_has_three_faults():
     for kernel in ("K1", "K2", "K4", "K5", "K6a", "K6b", "K7a", "K7b", "K8", "K3 attention", "K3 gemm",
-                   "K9 gemm", "K9 requant", "K10", "K11"):
+                   "K9 gemm", "K9 requant", "K10", "K11", "K12"):
         assert sum(name.startswith(kernel) for name, _ in FAULTS) >= 3, kernel
 
 

@@ -62,10 +62,13 @@
 //   (as a centre and as a y or z neighbour of four others), which holds the
 //   whole-grid lattice (beyond L2) at 1.05x a device-to-device copy of the
 //   same bytes; keeping planes z - 1 and z in registers while a thread walks
-//   along z measured slower (PERF.md).
+//   along z measured slower (PERF.md). A vertex's place and its one-at-a-time
+//   stencil are blur_stencil.cuh's, which K12 (lattice_solve.cu) runs too:
+//   in the kernel forms the solve's blurs are K12's, and K8 serves the rest.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blur_stencil.cuh"
 #include "slice_walk.cuh"
 #include "splat_ordered.cuh"
 
@@ -176,34 +179,10 @@ bls_slice_kernel(const float* __restrict__ luma, const float* __restrict__ grid,
   }
 }
 
-// A lattice's shape for K8: the extents, the word strides of y and z, the
-// multiply-high constants for L, X and Y, and the central factor 2 * dim.
-struct BlurShape {
-  uint32_t Z, Y, X, L, sy, sz;  // sy = X * L, sz = Y * X * L
-  slice_walk::Magic by_l, by_x, by_y;
-  float center;
-};
-
-// A vertex's place in its class's lattice.
-struct Vertex {
-  uint32_t z, y, x, l;
-  // the next vertex in memory order
-  __device__ __forceinline__ void step(const BlurShape& p) {
-    if (++l < p.L) return;
-    l = 0;
-    if (++x < p.X) return;
-    x = 0;
-    if (++y < p.Y) return;
-    y = 0;
-    ++z;
-  }
-};
-
-// The vertex at word i of a class (i < 2^31: the host checks).
-__device__ __forceinline__ Vertex place(uint32_t i, const BlurShape& p) {
-  const uint32_t xr = p.by_l.div(i), zy = p.by_x.div(xr), z = p.by_y.div(zy);
-  return {z, zy - z * p.Y, xr - zy * p.X, i - xr * p.L};
-}
+using blur_stencil::BlurShape;
+using blur_stencil::place;
+using blur_stencil::sum9;
+using blur_stencil::Vertex;
 
 // Four consecutive words at q: one 16-byte load where q is 16-byte aligned.
 __device__ __forceinline__ float4 ld4(const float* q) {
@@ -211,29 +190,16 @@ __device__ __forceinline__ float4 ld4(const float* q) {
   return make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
 }
 
-// One vertex's blur in the plain twin's order: its centre, then its
-// neighbours z+1, z-1, y+1, y-1, x+1, x-1, l+1, l-1 (0 past an edge).
-__device__ __forceinline__ float sum9(float center, float c, float zp, float zm, float yp,
-                                      float ym, float xp, float xm, float lp, float lm) {
-  float o = __fmul_rn(center, c);
-  o = __fadd_rn(o, zp);
-  o = __fadd_rn(o, zm);
-  o = __fadd_rn(o, yp);
-  o = __fadd_rn(o, ym);
-  o = __fadd_rn(o, xp);
-  o = __fadd_rn(o, xm);
-  o = __fadd_rn(o, lp);
-  return __fadd_rn(o, lm);
-}
+// K8's words: read-only for the launch, through the read-only cache.
+struct LdgLoad {
+  const float* __restrict__ yb;
+  __device__ __forceinline__ float operator()(uint32_t i) const { return __ldg(yb + i); }
+};
 
 // Vertex w at word i, alone (a class's head and tail, runs across an x edge).
 __device__ __forceinline__ float blur_one(const float* __restrict__ yb, uint32_t i, Vertex w,
                                           const BlurShape& p) {
-  return sum9(p.center, __ldg(yb + i), w.z + 1 < p.Z ? __ldg(yb + i + p.sz) : 0.f,
-              w.z > 0 ? __ldg(yb + i - p.sz) : 0.f, w.y + 1 < p.Y ? __ldg(yb + i + p.sy) : 0.f,
-              w.y > 0 ? __ldg(yb + i - p.sy) : 0.f, w.x + 1 < p.X ? __ldg(yb + i + p.L) : 0.f,
-              w.x > 0 ? __ldg(yb + i - p.L) : 0.f, w.l + 1 < p.L ? __ldg(yb + i + 1) : 0.f,
-              w.l > 0 ? __ldg(yb + i - 1) : 0.f);
+  return blur_stencil::blur_vertex(LdgLoad{yb}, i, w, p);
 }
 
 constexpr int kBlurRuns = 1;  // 16-byte runs a thread takes (two: 6% slower at the whole grid)
@@ -344,16 +310,7 @@ extern "C" int vittf_bls_blur(const float* y, float* out, int B, int Z, int Y, i
   const int64_t per = (int64_t)Z * Y * X * L;
   if (per > INT32_MAX || (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
-  const BlurShape p{(uint32_t)Z,
-                    (uint32_t)Y,
-                    (uint32_t)X,
-                    (uint32_t)L,
-                    (uint32_t)((int64_t)X * L),
-                    (uint32_t)((int64_t)Y * X * L),
-                    slice_walk::Magic::of(L),
-                    slice_walk::Magic::of(X),
-                    slice_walk::Magic::of(Y),
-                    2.0f * (float)blur_dim};
+  const BlurShape p = BlurShape::of(Z, Y, X, L, blur_dim);
   // the class's runs, and at least one block for its head and tail
   const dim3 g((unsigned)(per / 4 / (slice_walk::kThreads * kBlurRuns) + 1), B);
   bls_blur_kernel<<<g, slice_walk::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -99,6 +99,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vittf_swiglu.restype = i32
     lib.vittf_layer_norm.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i32, f32, vp]
     lib.vittf_layer_norm.restype = i32
+    lib.vittf_lattice_solve.argtypes = [
+        vp, vp, vp, ctypes.c_longlong, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
+        i32, f32, f32, f32, i32, i32, vp,
+    ]
+    lib.vittf_lattice_solve.restype = i32
 
 
 def load_library() -> ctypes.CDLL:

@@ -19,8 +19,11 @@ plain PyTorch twin beside it: ``bls_splat``, ``bls_slice`` and ``bls_blur``
 (``csrc/bilateral.cu``) work on raw voxels; ``bls_reblock``,
 ``bls_unreblock``, ``bls_splat_blocked`` and ``bls_slice_blocked``
 (``csrc/bilateral_reblock.cu``) are the split form, in which pixels are first
-grouped by spatial lattice cell. Each wrapper launches its kernel for CUDA
-tensors and runs its twin for CPU tensors; ``pixel_impl='scatter'`` runs the
+grouped by spatial lattice cell. The lattice-side solve, bistochastization
+and Jacobi-PCG, is one launch of ``lattice_solve`` (K12,
+``csrc/lattice_solve.cu``), whose plain twin ``_lattice_solve`` runs it op by
+op around ``bls_blur``. Each wrapper launches its kernel for CUDA tensors and
+runs its twin for CPU tensors; ``pixel_impl='scatter'`` runs the
 scatter/gather twins on any device. The TPU lowerings ``'scan'`` and
 ``'pallas_interpret'`` are not ported. On CUDA tensors the kernel forms of
 the solve run as one captured CUDA graph per shape and static arguments,
@@ -28,6 +31,7 @@ the counterpart of the JAX twin's ``jax.jit``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import inspect
 import math
@@ -461,14 +465,16 @@ bls_slice_blocked.launches = 0
 # ------------------------------------------------------------------ solve
 
 def _pixel_ops(pixel_impl: str, rank: int):
-    """→ (form, blur): the pixel↔lattice transfer form ('fused', 'blocked' or
-    'scatter') and the lattice blur for a solve of ``rank`` spatial axes."""
+    """→ (form, solve): the pixel↔lattice transfer form ('fused', 'blocked' or
+    'scatter') and the lattice-side solve for a solve of ``rank`` spatial axes:
+    K12 (``lattice_solve``) in the kernel forms, the per-op ``_lattice_solve``
+    with the plain blur for 'scatter'."""
     if pixel_impl == "auto":  # the JAX twin's 'pallas': fused kernels in 3D only
-        return ("fused" if rank == 3 else "blocked"), bls_blur
+        return ("fused" if rank == 3 else "blocked"), lattice_solve
     if pixel_impl == "reblock":
-        return "blocked", bls_blur
+        return "blocked", lattice_solve
     if pixel_impl == "scatter":
-        return "scatter", _blur
+        return "scatter", functools.partial(_lattice_solve, blur=_blur)
     raise ValueError(f"unknown pixel_impl: {pixel_impl}")
 
 
@@ -534,9 +540,12 @@ def _lattice_solve(m, w_splat, b, ext, lam, A_diag_min, cg_tol, cg_maxiter,
                    bistoch_iters, blur_dim, blur=bls_blur, y0=None):
     """Lattice-side solve for (B, nverts) splat(1), splat(c), splat(t·c):
     bistochastization, then Jacobi-PCG on A(y) = λ(Dm − Dn·blur·Dn)y +
-    diag(splat(c))·y (reference bilateral_solver3d.py:107-154). Shared by the
-    direct solve and both levels of the coarse-to-fine solve; ``y0`` replaces
-    the b / splat(c) start (the coarse-to-fine prolongation).
+    diag(splat(c))·y (reference bilateral_solver3d.py:107-154), op by op: the
+    plain twin of K12 (``lattice_solve``), which runs it in one launch on CUDA
+    tensors in the kernel forms, and the solve of 'scatter' and of CPU
+    tensors. Shared by the direct solve and both levels of the coarse-to-fine
+    solve; ``y0`` replaces the b / splat(c) start (the coarse-to-fine
+    prolongation).
 
     The CG is ``jax.scipy.sparse.linalg.cg`` as the JAX twin runs it under
     ``vmap``: atol² = max(tol²·⟨b,b⟩, 0), and a class iterates while
@@ -592,6 +601,122 @@ def _lattice_solve(m, w_splat, b, ext, lam, A_diag_min, cg_tol, cg_maxiter,
     return x
 
 
+# ---------------------------------------------------------- K12 lattice solve
+
+SOLVE_VECTORS = {"resident": 11, "streamed": 9}  # words a vertex keeps (lattice_solve.cu)
+SOLVE_SHARED_BYTES = 224 * 1024  # dynamic shared memory a resident block may take
+
+
+@dataclasses.dataclass(frozen=True)
+class SolvePlan:
+    """One K12 launch: classes [c0, c1), each cut into ``segments`` runs of
+    ``seg`` vertices, one block a run; ``resident`` keeps a block's state in
+    shared memory, else it streams from a device scratch."""
+    c0: int
+    c1: int
+    segments: int
+    seg: int
+    resident: bool
+
+    @property
+    def blocks(self) -> int:
+        return (self.c1 - self.c0) * self.segments
+
+
+def _solve_plan(B: int, nverts: int, n_sms: int) -> list[SolvePlan]:
+    """K12's launches for B classes of ``nverts`` vertices on a card of
+    ``n_sms`` SMs: at most ``n_sms`` classes a launch (one in every call the
+    port makes), each class cut into equal runs, 32-vertex aligned, so that
+    the launch has at most ``n_sms`` blocks, one resident on each SM. A run
+    of ``seg`` vertices is resident when its ``SOLVE_VECTORS['resident']``
+    vectors fit in ``SOLVE_SHARED_BYTES``: the shape alone decides."""
+    if B < 1 or nverts < 1 or n_sms < 1:
+        raise ValueError(f"lattice solve plan: B {B}, {nverts} vertices, {n_sms} SMs")
+    plans = []
+    for c0 in range(0, B, n_sms):
+        c1 = min(B, c0 + n_sms)
+        per_class = n_sms // (c1 - c0)
+        seg = -(-nverts // per_class)
+        seg = -(-seg // 32) * 32
+        resident = 4 * SOLVE_VECTORS["resident"] * seg <= SOLVE_SHARED_BYTES
+        plans.append(SolvePlan(c0, c1, -(-nverts // seg), seg, resident))
+    return plans
+
+
+def lattice_solve(m, w_splat, b, ext, lam, A_diag_min, cg_tol, cg_maxiter, bistoch_iters,
+                  blur_dim, y0=None):
+    """``_lattice_solve``'s result with the lattice blur ``bls_blur``: the K12
+    kernel for CUDA tensors (one launch a call, ``SolvePlan``), the per-op
+    twin for CPU tensors. m, w_splat, b: (B, nverts) fp32 rows with unit
+    stride and one class stride (the unbound planes of a splat), nverts =
+    prod(ext) over 2-4 lattice axes; ``y0`` a contiguous (B, nverts) start.
+    K12 computes every vertex by the twin's formulas and sums its dots in a
+    fixed order of its own: it equals its repeat bit for bit, and the twin
+    to the rounding of those sums."""
+    if m.device.type == "cpu":
+        return _lattice_solve(m, w_splat, b, ext, lam, A_diag_min, cg_tol, cg_maxiter,
+                              bistoch_iters, blur_dim, blur=bls_blur, y0=y0)
+    if m.device.type != "cuda":
+        raise ValueError(f"lattice_solve: unsupported device {m.device}")
+    return _solve_launch(m, w_splat, b, ext, lam, A_diag_min, cg_tol, cg_maxiter,
+                         bistoch_iters, blur_dim, y0)
+
+
+def _check_solve_inputs(m, w_splat, b, ext, y0) -> tuple[int, ...]:
+    """Raise on what K12 does not take; returns the lattice as (Z, Y, X, L)."""
+    ext = tuple(int(e) for e in ext)
+    if not 2 <= len(ext) <= 4:
+        raise ValueError(f"lattice_solve kernel takes 2-4 lattice axes, got {ext}")
+    B, nverts = m.shape[0], math.prod(ext)
+    for t in (m, w_splat, b) + (() if y0 is None else (y0,)):
+        if t.device != m.device:
+            raise ValueError(f"lattice_solve: tensors on {t.device} and {m.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"lattice_solve kernel takes fp32, got {t.dtype}")
+        if tuple(t.shape) != (B, nverts):
+            raise ValueError(f"lattice_solve: {tuple(t.shape)} is not ({B}, {nverts}) of {ext}")
+    if any(t.stride(1) != 1 or t.stride(0) != m.stride(0) for t in (m, w_splat, b)):
+        raise ValueError("lattice_solve kernel takes m, w, b rows of unit stride at one "
+                         "class stride")
+    if y0 is not None and not y0.is_contiguous():
+        raise ValueError("lattice_solve kernel takes a contiguous y0")
+    if nverts >= 2**31:
+        raise ValueError(f"lattice_solve kernel takes < 2**31 vertices a class, got {nverts}")
+    return (1,) * (4 - len(ext)) + ext
+
+
+def _solve_launch(m, w_splat, b, ext, lam, A_diag_min, cg_tol, cg_maxiter, bistoch_iters,
+                  blur_dim, y0):
+    """K12's launches on CUDA tensors, one per ``SolvePlan``; the inputs are
+    checked before any. Each launch is cooperative: the driver starts it only
+    with all of its blocks (at most one an SM) resident at once, or refuses
+    it, so that its grid barriers never wait on a block that does not run;
+    a stream capture records it as one cooperative kernel node."""
+    Z, Y, X, L = _check_solve_inputs(m, w_splat, b, ext, y0)
+    B, nverts = m.shape
+    tol2 = float(np.square(np.float32(cg_tol)))  # torch.square of the fp32 tolerance
+    n_sms = torch.cuda.get_device_properties(m.device).multi_processor_count
+    out = torch.empty((B, nverts), dtype=torch.float32, device=m.device)
+    for plan in _solve_plan(B, nverts, n_sms):
+        Bg = plan.c1 - plan.c0
+        u = torch.empty(2 * Bg * nverts, dtype=torch.float32, device=m.device)
+        state = None if plan.resident else torch.empty(
+            SOLVE_VECTORS["streamed"] * plan.blocks * plan.seg, dtype=torch.float32,
+            device=m.device)
+        count = torch.zeros(1 + 4 * plan.blocks, dtype=torch.int32, device=m.device)
+        _launch("vittf_lattice_solve", m.device, m[plan.c0].data_ptr(),
+                w_splat[plan.c0].data_ptr(), b[plan.c0].data_ptr(), m.stride(0),
+                None if y0 is None else y0[plan.c0].data_ptr(), out[plan.c0].data_ptr(),
+                u.data_ptr(), None if state is None else state.data_ptr(), count.data_ptr(),
+                Bg, Z, Y, X, L, int(blur_dim), plan.segments, plan.seg, int(plan.resident),
+                float(lam), float(A_diag_min), tol2, int(bistoch_iters), int(cg_maxiter))
+        lattice_solve.launches += 1
+    return out
+
+
+lattice_solve.launches = 0
+
+
 def _bilateral_solve_eager(
     target: torch.Tensor,  # (B, *spatial) float, 1-3 spatial axes
     luma: torch.Tensor,  # (B, *spatial) float in [0, 255]
@@ -612,7 +737,7 @@ def _bilateral_solve_eager(
     CPU tensors and of ``'scatter'``, the body every captured graph holds,
     and the witness the graphs are held against."""
     B, shape = target.shape[0], tuple(target.shape[1:])
-    form, blur = _pixel_ops(pixel_impl, len(shape))
+    form, solve = _pixel_ops(pixel_impl, len(shape))
     ext = _grid_extents(shape, sigma_spatial, sigma_luma)
     lu = luma.float().contiguous()
     t, c = target.float().contiguous(), confidence.float().contiguous()
@@ -628,7 +753,7 @@ def _bilateral_solve_eager(
 
     m, w_splat, b = splat3.reshape(B, 3, -1).unbind(1)
     solve_kw = dict(lam=lam, A_diag_min=A_diag_min, cg_tol=cg_tol,
-                    bistoch_iters=bistoch_iters, blur_dim=blur_dim, blur=blur)
+                    bistoch_iters=bistoch_iters, blur_dim=blur_dim)
     if coarse_to_fine and all(e >= 2 for e in ext):
         # two levels: the σ-doubled coarse problem is the 2× sum-pool of the
         # fine splat (exact, see _sumpool2), solved to cg_maxiter, and its
@@ -638,12 +763,12 @@ def _bilateral_solve_eager(
         ext_c = _grid_extents(shape, 2 * sigma_spatial, 2 * sigma_luma)
         mc, wc, bc = (_sumpool2(v.reshape((B,) + ext), ext_c).reshape(B, -1)
                       for v in (m, w_splat, b))
-        yc = _lattice_solve(mc, wc, bc, ext_c, cg_maxiter=cg_maxiter, **solve_kw)
+        yc = solve(mc, wc, bc, ext_c, cg_maxiter=cg_maxiter, **solve_kw)
         y0 = _prolong2(yc.reshape((B,) + ext_c), ext).reshape(B, -1)
         y0 = torch.where(m > 0, y0, 0.0)  # empty vertices are identity rows: keep 0
-        yhat = _lattice_solve(m, w_splat, b, ext, cg_maxiter=fine_maxiter, y0=y0, **solve_kw)
+        yhat = solve(m, w_splat, b, ext, cg_maxiter=fine_maxiter, y0=y0, **solve_kw)
     else:
-        yhat = _lattice_solve(m, w_splat, b, ext, cg_maxiter=cg_maxiter, **solve_kw)
+        yhat = solve(m, w_splat, b, ext, cg_maxiter=cg_maxiter, **solve_kw)
     out = slice_(yhat.reshape(B, -1, ext[-1]).contiguous())
     return torch.nan_to_num(out)
 
@@ -657,7 +782,7 @@ _SOLVE_DEFAULTS = {name: p.default for name, p in
                    inspect.signature(_bilateral_solve_eager).parameters.items()
                    if p.default is not inspect.Parameter.empty}
 _WRAPPERS = (bls_splat, bls_slice, bls_blur, bls_reblock, bls_unreblock, bls_splat_blocked,
-             bls_slice_blocked)
+             bls_slice_blocked, lattice_solve)
 
 
 def _graph_key(device: torch.device, shape, kw: dict) -> tuple:

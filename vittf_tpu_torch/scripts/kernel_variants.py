@@ -1,13 +1,14 @@
 """Build edited copies of the CUDA sources on the card and run a check or a
 timer with each: the planted faults that show a kernel check catches a wrong
 kernel, and the ablations behind the notes on what bounds K1, K2, the GEMM
-body of K3 and K9, K8, K6a and K6b.
+body of K3 and K9, K8, K6a, K6b and K12.
 
     python3 -m vittf_tpu_torch.scripts.kernel_variants faults [--only K1[,K2...]]
     python3 -m vittf_tpu_torch.scripts.kernel_variants attention-ablation
     python3 -m vittf_tpu_torch.scripts.kernel_variants similarity-ablation
     python3 -m vittf_tpu_torch.scripts.kernel_variants gemm-ablation
     python3 -m vittf_tpu_torch.scripts.kernel_variants bilateral-ablation
+    python3 -m vittf_tpu_torch.scripts.kernel_variants lattice-solve-ablation
     python3 -m vittf_tpu_torch.scripts.kernel_variants graph-faults
 
 Run from the repository's root on a machine with one GPU and ``nvcc``: the
@@ -38,6 +39,7 @@ AC, SIM, BL, RB, SO = ("attention_core.cuh", "similarity.cu", "bilateral.cu",
                        "bilateral_reblock.cu", "splat_ordered.cuh")
 GC, FB, CG, WC = "gemm_core.cuh", "fused_block.cu", "chain_gemm.cu", "wgmma_common.cuh"
 SW, LN = "swiglu.cu", "layer_norm.cu"
+BS, LS = "blur_stencil.cuh", "lattice_solve.cu"
 
 # (name, chip_smoke phase, [(file, old, new), ...]); a phase without edits is the control.
 # A fault must keep every access inside its arrays: a fault of the card (an
@@ -166,8 +168,7 @@ FAULTS = [
      [(BL, "const float4 zm = w.z > 0 ? ld4(q - p.sz) : zero;",
        "const float4 zm = w.z > 1 ? ld4(q - p.sz) : zero;")]),
     ("K8 a lone vertex's x+1 taken from x-1", "bilateral",
-     [(BL, "w.x + 1 < p.X ? __ldg(yb + i + p.L) : 0.f,",
-       "w.x + 1 < p.X && w.x > 0 ? __ldg(yb + i - p.L) : 0.f,")]),
+     [(BS, "w.x + 1 < p.X ? ld(i + p.L) : 0.f,", "w.x + 1 < p.X && w.x > 0 ? ld(i - p.L) : 0.f,")]),
     ("K8 z+1 and z-1 added in swapped order", "bilateral",
      [(BL, "o.x = sum9(p.center, c.x, zp.x, zm.x,", "o.x = sum9(p.center, c.x, zm.x, zp.x,")]),
     ("K6a a lane's source row one off in dy", "bilateral",
@@ -197,6 +198,14 @@ FAULTS = [
        "uint32_t* o = ob + ((int64_t)min(z, Z - 1) * Y + y) * X + wx;")]),
     ("K6b one word a lane read from lane p + 1", "bilateral",
      [(RB, "      *o = s[0];\n", "      *o = s[w.row.p + 1 < P ? 1 : 0];\n")]),
+    ("control: no edit", "lattice_solve", []),
+    ("K12 one CG step dropped", "lattice_solve",
+     [(LS, "for (int step = 0; step < a.cg_maxiter; ++step) {",
+       "for (int step = 1; step < a.cg_maxiter; ++step) {")]),
+    ("K12 the per-class freeze removed", "lattice_solve",
+     [(LS, "const bool active = rr > atol2;", "const bool active = rr > atol2 || true;")]),
+    ("K12 a halo neighbour lost at a block boundary", "lattice_solve",
+     [(LS, "    return __ldcg(u + i);\n", "    return 0.f;\n")]),
     ("control: no edit", "fused_block", []),
     # K3's attention launch: the wrapper around attention_core in fused_block.cu
     ("K3 attention: k rows read at pitch D instead of 3D", "fused_block",
@@ -378,6 +387,40 @@ BILATERAL_ABLATION = [
        "__stcs(reinterpret_cast<uint4*>(o), make_uint4(s[0], s[P], s[2 * P], s[3 * P]));")]),
     ("whole kernels, again", []),
 ]
+
+
+# K12 at the refined edit cell's and the 2-D solver's lattices (both resident)
+# with one part taken out or done another way (results wrong where a part is
+# out: only the times count)
+LATTICE_SOLVE_ABLATION = [
+    ("whole kernel", []),
+    ("barrier by fences around a relaxed add (cooperative groups' grid sync)",
+     [(LS, '    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(count), "r"(1u) : '
+           '"memory");\n', "    __threadfence();\n    atomicAdd(count, 1u);\n"),
+      (LS, '"l"(count) : "memory");\n  }\n', '"l"(count) : "memory");\n    __threadfence();\n  }\n')]),
+    ("halo through L1 (plain loads)", [(LS, "    return __ldcg(u + i);\n", "    return u[i];\n")]),
+    ("no halo reads (a block's own copy only)",
+     [(LS, "    return __ldcg(u + i);\n", "    return own[0];\n")]),
+    ("no grid barrier (blocks never wait for each other)",
+     [(LS, "  if (threadIdx.x == 0) {\n    asm volatile(\"red.release",
+       "  if (false) {\n    asm volatile(\"red.release")]),
+    ("whole kernel, again", []),
+]
+
+
+def _time_lattice_solve(cs, torch):
+    out = []
+    for name, crop, ss, sl, dim in (("cell", cs.K12_CELL_CROP, cs.BLS_SS, cs.BLS_SL, 6),
+                                    ("2-D", (2048, 2048), cs.BLS2D_SS, cs.BLS2D_SL, 5)):
+        _, m, w, b, ext = cs.lattice_case(0, crop, 1, ss, sl)
+        kw = dict(lam=256.0, A_diag_min=1e-5, cg_tol=1e-5, cg_maxiter=25, bistoch_iters=10,
+                  blur_dim=dim)
+        solve = [round(cs.ten_call_ms(lambda: cs.lattice_solve(m, w, b, ext, **kw)), 5)
+                 for _ in range(3)]
+        setup = cs.ten_call_ms(lambda: cs.lattice_solve(
+            m, w, b, ext, **{**kw, "cg_maxiter": 0, "bistoch_iters": 0}))
+        out.append(f"K12 {name} {solve}, without its 10 + 25 steps {round(setup, 5)}")
+    return "ms: " + ", ".join(out)
 
 
 def _time_bilateral(cs, torch):
@@ -585,7 +628,8 @@ def run_variant(name, edits, check, kernels) -> bool | None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=["faults", "attention-ablation", "similarity-ablation",
-                                     "gemm-ablation", "bilateral-ablation", "graph-faults"])
+                                     "gemm-ablation", "bilateral-ablation",
+                                     "lattice-solve-ablation", "graph-faults"])
     ap.add_argument("--only", default="",
                     help="run the variants whose name starts with one of these (comma-separated)")
     args = ap.parse_args(argv)
@@ -620,6 +664,8 @@ def main(argv=None) -> int:
         todo = [(n, e, lambda: _time_similarity(cs, torch)) for n, e in SIMILARITY_ABLATION]
     elif args.what == "gemm-ablation":
         todo = [(n, e, lambda: _time_gemms(cs, torch)) for n, e in GEMM_ABLATION]
+    elif args.what == "lattice-solve-ablation":
+        todo = [(n, e, lambda: _time_lattice_solve(cs, torch)) for n, e in LATTICE_SOLVE_ABLATION]
     else:
         todo = [(n, e, lambda: _time_bilateral(cs, torch)) for n, e in BILATERAL_ABLATION]
     verdicts = []
