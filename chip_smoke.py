@@ -122,6 +122,15 @@ quality harness and the multi-device layer. Phases:
    99.9% bit-equal, each equal to its repeat; timed beside its byte
    bound, the twins and ``torch.add`` / ``F.layer_norm`` (its registers
    and spills with ``--ptxas``);
+5g. DINOv3: K1's RoPE mode at head dim 128 (``phase_rope_attention``)
+   against ``rope_plain`` then ``attention_plain`` at the ViT-7B/16 cell's
+   (32, 32, 1029, 128) and ragged grids and prefixes, peaked rows, a fused
+   qkv buffer, equal to its repeats, timed beside its bound; K11 at D 4096
+   (``phase_layer_norm_wide``) as 5f holds the narrow widths; then the path
+   (``phase_rope_path``): ViT-7B/16 at full width and three blocks through
+   ``extract_features`` on a 64³ phantom (512² slices, 1029 tokens, batch
+   32: 12 RoPE attention launches, 12 of K10, 42 of K11), kernels vs plain
+   twins, ``block_impl='fused'`` refused;
 6. main path: ``infer`` on a 128³ phantom, ``predict_ntf``, three requests;
    the attention and similarity launch counters must have risen;
 7. fused path: ``infer --block-impl fused`` on the same volume (528 fused
@@ -267,13 +276,19 @@ from vittf_tpu_torch.cli import infer, predict_ntf, serve
 from vittf_tpu_torch.core.io import load_features
 from vittf_tpu_torch.models import vit as vit_module
 from vittf_tpu_torch.models.dino import resolve_model
-from vittf_tpu_torch.models.vit import VisionTransformer, init_vit_params
+from vittf_tpu_torch.models.vit import VisionTransformer, init_vit_params, rope_table
 from vittf_tpu_torch.ops.bilateral_sparse import apply_bilateral_solver3d_rgb
 from vittf_tpu_torch.ops.query import resample_topk
 from vittf_tpu_torch.pipeline.annotations import sample_uniform
 from vittf_tpu_torch.pipeline.baselines import compose_features, sample_train_data, svm_predict_device
 from vittf_tpu_torch.pipeline.compare_sampling import compare_sampling_strategies, normalize_features
-from vittf_tpu_torch.ops.attention import attention, attention_plain, multi_head_attention
+from vittf_tpu_torch.ops.attention import (
+    Rope,
+    attention,
+    attention_plain,
+    multi_head_attention,
+    rope_plain,
+)
 from vittf_tpu_torch.ops.bilateral import (
     _bilateral_solve_eager,
     _blocked_pixel_view,
@@ -366,6 +381,9 @@ SWIGLU_SHAPE = (32 * 1029, 2 * 4096)  # ViT-g/14-reg's w12 output: batch 32 of 3
 # the per-op extraction cells' residual streams: ViT-B/8, batch 8 of 64²+1
 # tokens; ViT-g/14-reg, batch 32 of 32²+5
 LN_SHAPES = ((8 * 4097, 768), (32 * 1029, 1536))
+LN_WIDE_SHAPE = (32 * 1029, 4096)  # DINOv3 ViT-7B/16's residual stream: batch 32 of 32²+5
+ROPE_SHAPE = (32, 32, 32 * 32 + 5, 128)  # its attention: 32 slices, 32 heads, 32²+5 tokens
+ROPE_GRID = (32, 32)
 LN_BYTES = {"ln": 4, "residual_ln": 8, "residual": 6}  # a mode's bytes an element
 BLOCK_SHAPE = (8, 4097, 384)  # the same slice batch as tokens of width D
 LOUD_PEAK, K_SHIFT = 4.0, 80.0  # loud_params' Wq/Wk scale; the row-max case's k-bias scale
@@ -2463,7 +2481,7 @@ def hold_ln(name, got, x_in, ln):
     return share, differ, (got.float() - want.float()).abs().max().item()
 
 
-def phase_layer_norm(gen):
+def phase_layer_norm(gen, cases=None, timed=LN_SHAPES):
     """K11 against its plain twins on the card in its three modes (LN;
     residual + LN with and without gamma; residual with gamma), at the
     per-op extraction cells' launch shapes and at ragged ones (rows 1, 7,
@@ -2475,14 +2493,16 @@ def phase_layer_norm(gen):
     residual 6 bytes an element), the twins and the library yardstick
     (``F.layer_norm``, ``torch.add`` and both, without gamma; the port calls
     neither). Registers and spills come from ``--ptxas``. Returns the
-    residual + LN entry at ViT-B/8's shape, with the largest |y − twin| of
-    its two residual + LN cases there."""
+    residual + LN entry at the first timed shape (ViT-B/8's), with the
+    largest |y − twin| of its two residual + LN cases there. ``cases`` and
+    ``timed``: other shapes (``phase_layer_norm_wide``)."""
     def poison_two(fn, shape):
         blocks = [torch.full(shape, float("nan"), device="cuda") for _ in range(2)]
         del blocks
         return fn()
 
-    cases = [*LN_SHAPES, (1, 8), (7, 384), (129, 1024), (33, 1544), (3, 2048), (2, 1029, 1536)]
+    if cases is None:
+        cases = [*timed, (1, 8), (7, 384), (129, 1024), (33, 1544), (3, 2048), (2, 1029, 1536)]
     residual_ln_err = {}
     for shape in cases:
         x, a, gamma, ln = ln_inputs(shape, gen)
@@ -2509,7 +2529,7 @@ def phase_layer_norm(gen):
               f"its repeat; y (share bit-equal, values that differ, max |y - twin|) LN, "
               f"residual + LN with and without gamma: {worst}")
     entry = None
-    for M, D in LN_SHAPES:
+    for M, D in timed:
         x, a, gamma, ln = ln_inputs((M, D), gen)
         runs = {
             "ln": (lambda: ln_ops.layer_norm(x, ln),
@@ -2537,46 +2557,139 @@ def phase_layer_norm(gen):
     return entry
 
 
+def phase_layer_norm_wide(gen):
+    """K11 at DINOv3 ViT-7B/16's width, its instance of 16 vectors a lane
+    (D 2056 to 4096), held as ``phase_layer_norm`` holds the narrow ones: at
+    the cell's launch (32 928, 4096), timed there, and at ragged shapes
+    (rows 1, 7, 129; widths 2056, 3072, 4096; a (2, 1029, 4096) batch)."""
+    return phase_layer_norm(gen, [LN_WIDE_SHAPE, (1, 4096), (7, 2056), (129, 3072),
+                                  (2, 1029, 4096)], (LN_WIDE_SHAPE,))
+
+
+def rope_case(shape, grid, gen, q_scale=1.0):
+    """(q, k, v, Rope) on the card for (B, H, N, 128) heads over an (h, w)
+    grid after N − h·w prefix rows: the table of DINOv3's base-100 angles
+    (``rope_table``)."""
+    q, k, v = (torch.randn(shape, generator=gen).to("cuda", torch.bfloat16) for _ in range(3))
+    table = rope_table(grid, shape[-1], "cuda")
+    return q * q_scale, k, v, Rope(table, grid, shape[2] - grid[0] * grid[1])
+
+
+def phase_rope_attention(gen):
+    """K1's RoPE mode (head dim 128) against its twin, ``rope_plain`` then
+    ``attention_plain``: at 0.02·max|ref| of the twin run in fp32 on the same
+    bf16 values (the rotated q and k rounded to bf16, as the kernel rounds
+    them) and 0.05·max|ref| of the bf16 twin, each result equal to its
+    repeat. Shapes: the ViT-7B/16 cell's (32, 32, 1029, 128) over 32 x 32
+    patches after 5 prefix rows; one tile (N 17: 3 x 4 after 5), exact
+    tiles without a prefix (64: 8 x 8), one key and one query past a tile
+    (65 and 129: 8 x 8 after 1, 11 x 11 after 8), a grid of another aspect
+    (2 x 40 after 5), and peaked rows (q x 8); and q, k, v as the strided
+    views of a fused (B, N, 3D) qkv buffer. Timed at the cell's shape
+    beside its bound, the twin and ``scaled_dot_product_attention`` on q
+    and k rotated beforehand. Returns the kernel entry."""
+    cases = [(ROPE_SHAPE, ROPE_GRID, 1.0), ((2, 4, 17, 128), (3, 4), 1.0),
+             ((2, 4, 64, 128), (8, 8), 8.0), ((2, 4, 65, 128), (8, 8), 1.0),
+             ((2, 4, 129, 128), (11, 11), 8.0), ((2, 4, 85, 128), (2, 40), 1.0),
+             ((2, 4, 1029, 128), (32, 32), 8.0)]
+    before = attention.rope_launches
+    for shape, grid, q_scale in cases:
+        q, k, v, rope = rope_case(shape, grid, gen, q_scale)
+        got = attention(q, k, v, rope)
+        qr, kr = rope_plain(q, rope), rope_plain(k, rope)
+        exact = attention_plain(qr.float(), kr.float(), v.float())
+        name = f"rope attention {shape} grid {grid} q x {q_scale}"
+        err32 = check_rel(f"{name} vs the fp32 twin", got, exact, 0.02)
+        if q_scale == 1.0:
+            check_rel(f"{name} vs the bf16 twin", got, attention_plain(qr, kr, v), 0.05)
+        assert_equal(f"{name}: repeat", attention(q, k, v, rope), got)
+        print(f"{name}: max_abs_err to the fp32 twin {err32}, max|ref| "
+              f"{exact.abs().max().item()}")
+        del exact
+    B, H, N, hd = ROPE_SHAPE
+    qkv = torch.randn((2, 1029, 3 * H * hd), generator=gen).to("cuda", torch.bfloat16)
+    rope = Rope(rope_table(ROPE_GRID, hd, "cuda"), ROPE_GRID, 5)
+    got = multi_head_attention(qkv, H, rope=rope)
+    err = check_rel(f"rope attention fused qkv {tuple(qkv.shape)}", got,
+                    multi_head_attention(qkv.float(), H, impl="plain", rope=rope), 0.02)
+    print(f"rope attention fused qkv {tuple(qkv.shape)}: max_abs_err {err}")
+    launches = attention.rope_launches - before
+    if launches != 2 * len(cases) + 1:
+        raise AssertionError(f"{launches} RoPE launches counted, {2 * len(cases) + 1} made")
+    q, k, v, rope = rope_case(ROPE_SHAPE, ROPE_GRID, gen)
+    qr, kr = rope_plain(q, rope), rope_plain(k, rope)
+    ms = ten_call_ms(lambda: attention(q, k, v, rope))
+    plain_ms = cuda_ms(lambda: attention_plain(rope_plain(q, rope), rope_plain(k, rope), v))
+    lib_ms = ten_call_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qr, kr, v))
+    flops = 4 * B * H * N * N * hd
+    bound = flops / PEAK_FLOPS["bf16"] * 1e3
+    print(f"rope attention {ROPE_SHAPE} bfloat16: kernel {ms} ms ({flops / ms / 1e9} TFLOP/s, "
+          f"{100 * bound / ms}% of the bound {bound} ms); plain {plain_ms} ms; "
+          f"scaled_dot_product_attention on pre-rotated q, k {lib_ms} ms")
+    return kernel_entry(err32, ms, plain_ms, nbytes=4 * q.numel() * q.element_size(),
+                        ops=flops, peak="bf16", library_ms=lib_ms)
+
+
+def phase_rope_path(seed):
+    """DINOv3 ViT-7B/16 at full width with three blocks through
+    ``extract_features`` (``kernels_vs_plain_path``): 512² slices of 1029
+    tokens, 6 batches of 32, two whole blocks each: 12 RoPE attention and
+    12 gate launches, 42 of K11 at D 4096. Returns the RoPE launches."""
+    cfg = dataclasses.replace(resolve_model(dino3_model="vit7b16"), depth=3)
+    return kernels_vs_plain_path(
+        "ViT-7B/16", cfg, seed, seed + 13,
+        {"RoPE attention": lambda: attention.rope_launches, "the gate": lambda: swiglu.launches,
+         "layer_norm": lambda: ln_ops.layer_norm.launches}, (12, 12, 42))[0]
+
+
 def phase_swiglu_path(seed):
-    """ViT-g/14-reg at full width with three blocks (LayerScale gammas at 1,
-    so every block reaches the output) through ``extract_features`` on a
-    64³ phantom: 448² slices of 1029 tokens, 6 batches of 32, two whole
-    blocks each: 12 gate launches; kernels vs plain twins (both bf16) at the
-    bf16 block-stack contract of ``phase_consistency``; the fused block
-    refused. Returns the gate's and K11's launches (42: two whole blocks
-    and the last block's LN1 a batch)."""
+    """ViT-g/14-reg at full width with three blocks through
+    ``extract_features`` (``kernels_vs_plain_path``): 448² slices of 1029
+    tokens, 6 batches of 32, two whole blocks each: 12 gate launches, 42 of
+    K11. Returns the gate's and K11's launches."""
     cfg = dataclasses.replace(resolve_model(dino2_model="vitg14_reg"), depth=3)
+    return kernels_vs_plain_path(
+        "ViT-g/14-reg", cfg, seed, seed + 11,
+        {"swiglu": lambda: swiglu.launches, "layer_norm": lambda: ln_ops.layer_norm.launches},
+        (12, 42))
+
+
+def kernels_vs_plain_path(label, cfg, seed, vol_seed, counters, expect):
+    """``cfg`` (LayerScale gammas at 1, so every block reaches the output)
+    through ``extract_features`` on a 64³ phantom, 32³ features in batches
+    of 32, with the kernels and with the plain twins (both bf16), held at
+    the bf16 block-stack contract of ``phase_consistency``; the fused block
+    refused. ``counters``: name → reader of a launch counter, whose rise over
+    the two runs must be ``expect``. Returns the rises."""
     params = init_vit_params(cfg, (0, seed))
     params = {k: torch.ones_like(v) if k.endswith(".gamma") else v for k, v in params.items()}
-    vol, _ = phantom(64, seed + 11)
-    feats, before, ln_before = {}, swiglu.launches, ln_ops.layer_norm.launches
+    vol, _ = phantom(64, vol_seed)
+    feats, before = {}, [read() for read in counters.values()]
     for impl in ("auto", "plain"):
         ex = ExtractConfig(feature_output_size=32, batch_size=32, compute_dtype="bfloat16",
                            attn_impl=impl)
         t0 = time.perf_counter()
         feats[impl] = extract_features(vol, params, cfg, ex, device="cuda")["k"]
         torch.cuda.synchronize()
-        print(f"ViT-g/14-reg x 3 blocks on 64^3 ({impl}): {time.perf_counter() - t0} s")
-    launches = swiglu.launches - before
-    ln_launches = ln_ops.layer_norm.launches - ln_before
-    if (launches, ln_launches) != (12, 42):
-        raise AssertionError(f"swiglu and layer_norm launched {launches} and {ln_launches} "
-                             f"times on the path, not 12 and 42 (2 blocks x 3 + 1 a batch)")
+        print(f"{label} x 3 blocks on 64^3 ({impl}): {time.perf_counter() - t0} s")
+    launches = tuple(read() - b for read, b in zip(counters.values(), before))
+    if launches != tuple(expect):
+        raise AssertionError(f"{', '.join(counters)} launched {launches} times on the path, "
+                             f"not {tuple(expect)} (2 blocks a batch, K11 3 a block + 1)")
     got, want = feats["auto"], feats["plain"]
-    if tuple(got.shape) != (1536, 32, 32, 32):
-        raise AssertionError(f"ViT-g/14-reg extraction shape {tuple(got.shape)}")
-    err = check_rel("ViT-g/14-reg extraction kernels vs plain", got, want, 0.02)
-    print(f"ViT-g/14-reg extraction kernels vs plain: max_abs_err {err} (limit "
-          f"{0.02 * want.abs().max().item()}); {launches} gate and {ln_launches} residual + "
-          f"LayerNorm launches")
+    if tuple(got.shape) != (cfg.embed_dim, 32, 32, 32):
+        raise AssertionError(f"{label} extraction shape {tuple(got.shape)}")
+    err = check_rel(f"{label} extraction kernels vs plain", got, want, 0.02)
+    print(f"{label} extraction kernels vs plain: max_abs_err {err} (limit "
+          f"{0.02 * want.abs().max().item()}); launches of {', '.join(counters)}: {launches}")
     try:
         extract_features(vol, params, cfg, ExtractConfig(compute_dtype="bfloat16",
                                                          block_impl="fused"), device="cuda")
     except ValueError as e:
-        print(f"block_impl='fused' refused for SwiGLU: {e}")
+        print(f"block_impl='fused' refused for {label}: {e}")
     else:
-        raise AssertionError("block_impl='fused' ran a SwiGLU model")
-    return launches, ln_launches
+        raise AssertionError(f"block_impl='fused' ran {label}")
+    return launches
 
 
 def phase_consistency(seed):
@@ -3706,6 +3819,9 @@ def main() -> int:
     entries["swiglu"] = phase_swiglu(gen)
     entries["layer_norm"] = phase_layer_norm(gen)
     n_swiglu, n_ln = phase_swiglu_path(args.seed)
+    entries["rope_attention"] = phase_rope_attention(gen)
+    phase_layer_norm_wide(gen)
+    n_rope = phase_rope_path(args.seed)
     n_k9 = phase_probe_path()
     phase_baselines(args.seed)
     phase_foundations(args.seed)
@@ -3750,6 +3866,8 @@ def main() -> int:
          n_blocked[3]),
         ("chain_gemm", "chain_gemm.cu", "scripts/bench_int8_gemm.py:60", n_k9),
         ("swiglu", "swiglu.cu", "none (DINOv2's SwiGLU gate)", n_swiglu),
+        ("rope_attention", "attention.cu", "none (DINOv3's RoPE attention at head dim 128)",
+         n_rope),
         ("layer_norm", "layer_norm.cu", "none (the per-op block's residual adds and "
          "LayerNorms, which XLA fuses)", n_ln),
     ]

@@ -26,6 +26,17 @@ def test_every_redesigned_kernel_has_three_faults():
         assert sum(name.startswith(kernel) for name, _ in FAULTS) >= 3, kernel
 
 
+@pytest.mark.parametrize("kernel", ["K1 RoPE", "K11 D 4096"])
+def test_the_dinov3_modes_have_three_faults_of_their_own(kernel):
+    """K1's RoPE mode at head dim 128 and K11 at D 4096, each against a
+    phase that runs that mode alone."""
+    faults = [(name, phase) for name, phase, edits in kv.FAULTS
+              if edits and name.startswith(kernel)]
+    assert len(faults) >= 3
+    assert {phase for _, phase in faults} == {"rope_attention" if "RoPE" in kernel
+                                              else "layer_norm_wide"}
+
+
 def test_fault_phases_exist_in_chip_smoke():
     import chip_smoke
 

@@ -49,7 +49,9 @@ def parent_layer_norm(x, ln):
     return y * ln.weight + ln.bias
 
 
-def parent_block_forward(self, x, precision="default", attn_impl="auto", capture=None):
+def parent_block_forward(self, x, precision="default", attn_impl="auto", capture=None,
+                         rope=None):
+    assert rope is None  # the parent's blocks had no RoPE
     qkv = self.attn.qkv(parent_layer_norm(x, self.norm1))
     a = multi_head_attention(qkv, self.num_heads, attn_impl)
     a = self.attn.proj(a)

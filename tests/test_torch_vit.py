@@ -136,7 +136,8 @@ def test_forward_bf16_speed_mode(tiny_pair):
 # The port's fields the JAX package's ViTConfig lacks, at their defaults
 # (DINO v1 and DINOv2 without registers: a GELU MLP, DINO's position rule).
 PORT_ONLY_DEFAULTS = {"ffn": "mlp", "num_register_tokens": 0, "interpolate_antialias": False,
-                      "interpolate_offset": 0.1}
+                      "interpolate_offset": 0.1, "position": "learned", "qkv_bias": True,
+                      "norm_eps": 1e-6}
 # ViT-g/14's FFN as published (facebookresearch/dinov2 vit_giant2,
 # ffn_layer='swiglufused': w12 1536 -> 8192, w3 4096 -> 1536), which the port
 # takes from the published model and the JAX package does not hold.

@@ -34,6 +34,7 @@ import torch
 
 DINO_ARCH_NAMES = ["vits16", "vits8", "vitb16", "vitb8"]
 DINO2_ARCH_NAMES = ["vits14", "vitb14", "vitl14", "vitg14", "vitg14_reg"]
+DINO3_ARCH_NAMES = ["vit7b16"]
 
 
 def handle_output_path(args, model_name: str) -> Path:
@@ -58,6 +59,8 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--cache-path", type=str, default=None)
     p.add_argument("--dino-model", type=str, choices=DINO_ARCH_NAMES, default=None)
     p.add_argument("--dino2-model", type=str, choices=DINO2_ARCH_NAMES, default=None)
+    p.add_argument("--dino3-model", type=str, choices=DINO3_ARCH_NAMES, default=None,
+                   help="DINOv3 (axial RoPE, head dim 128; per-op blocks only)")
     p.add_argument("--weights", type=str, default=None,
                    help="Path to a DINO checkpoint (.pth) or converted params (.npz)")
     p.add_argument("--slice-along", type=str, choices=["x", "y", "z", "all"], default="all")
@@ -156,7 +159,7 @@ def main(argv=None) -> int:
     from vittf_tpu_torch.models.dino import resolve_model
     from vittf_tpu_torch.pipeline.features import ExtractConfig, extract_features
 
-    cfg = resolve_model(args.dino_model, args.dino2_model)
+    cfg = resolve_model(args.dino_model, args.dino2_model, args.dino3_model)
     cache_path = handle_output_path(args, cfg.name)
     # streaming is for volumes past device comfort: keep them compact on the
     # host too (bit-identical features)

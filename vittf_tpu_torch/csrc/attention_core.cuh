@@ -40,6 +40,29 @@
 // the running max is finite after the first tile and exp2(−inf − m) is 0, not
 // NaN; tiles must be walked from 0 upward for that to hold.
 //
+// Head dim 128 (kHdT = 128, K1's RoPE mode): a row is 256 bytes, held as two
+// 128-byte sub-tiles (dims 0-63, 64-127) of the same swizzled layout, so the
+// scores' product takes eight 16-dim steps over both and P·V two n64 products
+// a step, one per sub-tile. Q (32 KB), a ring of four 32 KB K/V stages and
+// the RoPE table fill ~177 KB, and the accumulators, Q and p take 216
+// registers a thread: one block (two warpgroups) an SM, not two. Taking the softmax of tile + 1
+// beside p_tile·v_tile (a second set of p registers) was measured no faster
+// there, 2.39 against 2.37 ms at the ViT-7B/16 cell's shape.
+//
+// RoPE (kRope, head dim 128 only): DINOv3's axial rotation of the patch rows
+// of q and k, x' = x·cos + rotate_half(x)·sin with rotate_half([x1 | x2]) =
+// [−x2 | x1], in fp32 from bf16 and rounded once to bf16, products and sum
+// each rounded as PyTorch's fp32 ops round them. Rows < prefix (CLS,
+// registers) are left alone; patch p = row − prefix sits at grid row p / w,
+// column p % w. Dims d and d + 64 share one angle: of the 64 angles the
+// first 32 are the grid row's, the next 32 the column's, so the table is
+// (2, h + w, 32) fp32 (cos, then sin; rows 0..h−1 by grid row, h.. by
+// column), copied into shared memory once a block. The thread that copied a
+// row's chunk c of both sub-tiles holds a rotation pair: once its copies have
+// landed it rotates them in place, before the barrier that hands the tile to
+// the tensor cores: Q and K tiles 0 and 1 before the loop, K tile i + 2 in
+// step i, after its products are issued, so the rotation runs beside them.
+//
 // Template parameters: kMax = carry the row max (false: p = exp2(s), for
 // callers whose scores are known to be small); kPreScaled = q already holds
 // the factor 1/sqrt(hd)·log2(e), so s is in the exp2 domain as it comes out of
@@ -73,16 +96,29 @@ using wgmma_common::wgmma_wait;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kHd = 64;      // head dim
+constexpr int kHd = 64;      // head dim of every DINO / DINOv2 arch (K1, K3)
 constexpr int kBk = 64;      // keys per tile
 constexpr int kStages = 4;   // K/V ring depth: copies run three tiles ahead
-constexpr int kTileBytes = kBk * kHd * 2;  // one 64 x 64 bf16 tile: 8 KB
+constexpr int kSubBytes = kBk * 128;  // one 64-row sub-tile of 128-byte rows: 8 KB
 
 constexpr int kWg = 2;       // warpgroups per block: 128 queries share every K/V tile brought in
 constexpr int kThreads = 128 * kWg;
 constexpr int kBlockRows = 64 * kWg;
 constexpr int kOnesBytes = 1024;  // a B operand of ones: the row sums of p come from the tensor cores
-constexpr int kSmemBytes = kBlockRows * kHd * 2 + kStages * 2 * kTileBytes + kOnesBytes;
+constexpr int kRopeAngles = 32;   // a grid axis's angles at head dim 128
+
+// a block's shared memory at head dim kHdT, less the RoPE table
+template <int kHdT>
+constexpr int smem_bytes() {
+  return kBlockRows * kHdT * 2 + kStages * 2 * kBk * kHdT * 2 + kOnesBytes;
+}
+constexpr int kSmemBytes = smem_bytes<kHd>();
+
+// K1's RoPE mode: the table in device memory and where its rows apply
+struct Rope {
+  const float* table;  // (2, grid_h + grid_w, kRopeAngles) fp32, 16-byte aligned
+  int prefix, grid_h, grid_w;
+};
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -148,16 +184,20 @@ __device__ __forceinline__ void softmax_step(const float (&s)[8][4], float (&m)[
   }
 }
 
-// acc and the row sums: rows g, g + 8 times alpha[0], alpha[1]
-__device__ __forceinline__ void rescale(float (&acc)[8][4], float (&lsum)[4],
+// acc (each 64-dim sub-tile's) and the row sums: rows g, g + 8 times
+// alpha[0], alpha[1]
+template <int kSub>
+__device__ __forceinline__ void rescale(float (&acc)[kSub][8][4], float (&lsum)[4],
                                         const float (&alpha)[2]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] *= alpha[0];
-    acc[j][1] *= alpha[0];
-    acc[j][2] *= alpha[1];
-    acc[j][3] *= alpha[1];
-  }
+  for (int u = 0; u < kSub; ++u)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[u][j][0] *= alpha[0];
+      acc[u][j][1] *= alpha[0];
+      acc[u][j][2] *= alpha[1];
+      acc[u][j][3] *= alpha[1];
+    }
   lsum[0] *= alpha[0];
   lsum[1] *= alpha[0];
   lsum[2] *= alpha[1];
@@ -228,31 +268,75 @@ __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4
 #undef VITTF_ACC32
 #undef VITTF_D32
 
+// K1's RoPE mode: rotate in place the row pair this thread copied (chunk c of
+// both 128-byte sub-tiles of row `row` of a tile of `sub_bytes` a sub-tile),
+// whose index in the (batch, head) is `abs_row`, unless it is a prefix row
+// or lies past n_valid (the zeros of a ragged tile). `tab`: the table in
+// shared memory (see the header).
+__device__ __forceinline__ void rope_rotate(unsigned char* tile, int sub_bytes, int row,
+                                            int chunk, int abs_row, int n_valid,
+                                            const Rope& rope, const float* tab) {
+  const int p = abs_row - rope.prefix;
+  if (p < 0 || abs_row >= n_valid) return;
+  const int gi = p / rope.grid_w;
+  const int trow = chunk < 4 ? gi : rope.grid_h + (p - gi * rope.grid_w);
+  const float4* cs = reinterpret_cast<const float4*>(tab + trow * kRopeAngles + (chunk & 3) * 8);
+  const float4* sn = cs + (rope.grid_h + rope.grid_w) * kRopeAngles / 4;
+  const float4 c4[2] = {cs[0], cs[1]}, s4[2] = {sn[0], sn[1]};
+  const float c[8] = {c4[0].x, c4[0].y, c4[0].z, c4[0].w, c4[1].x, c4[1].y, c4[1].z, c4[1].w};
+  const float sv[8] = {s4[0].x, s4[0].y, s4[0].z, s4[0].w, s4[1].x, s4[1].y, s4[1].z, s4[1].w};
+  uint4* lo = reinterpret_cast<uint4*>(tile + swz(row, chunk));
+  uint4* hi = reinterpret_cast<uint4*>(tile + sub_bytes + swz(row, chunk));
+  uint4 a = *lo, b = *hi;
+  uint32_t* aw = reinterpret_cast<uint32_t*>(&a);
+  uint32_t* bw = reinterpret_cast<uint32_t*>(&b);
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const float2 x1 = wgmma_common::unpack_bf16(aw[w]), x2 = wgmma_common::unpack_bf16(bw[w]);
+    const float c0 = c[2 * w], c1 = c[2 * w + 1], s0 = sv[2 * w], s1 = sv[2 * w + 1];
+    aw[w] = pack_bf16(__fadd_rn(__fmul_rn(x1.x, c0), __fmul_rn(-x2.x, s0)),
+                      __fadd_rn(__fmul_rn(x1.y, c1), __fmul_rn(-x2.y, s1)));
+    bw[w] = pack_bf16(__fadd_rn(__fmul_rn(x2.x, c0), __fmul_rn(x1.x, s0)),
+                      __fadd_rn(__fmul_rn(x2.y, c1), __fmul_rn(x1.y, s1)));
+  }
+  *lo = a;
+  *hi = b;
+}
+
 // One block's work. q, k, v, o point at row 0 of this (batch, head); ld* are
 // row pitches in elements (rows 16-byte aligned); queries q0.. of n_q, keys
 // 0..n_valid-1. kThreads threads, all of which must call; warp w owns rows
-// 16w... `smem` holds kSmemBytes bytes, 1024-byte aligned.
+// 16w... `smem` holds smem_bytes<kHdT>() bytes, 1024-byte aligned, and with
+// kRope the table's 2 (grid_h + grid_w) kRopeAngles floats after them.
 //
 // The loop is bound by the instructions it issues beside the MMAs (one exp2,
 // one max, one FMA, half a pack per score), so what only the last key tile
 // needs (the row mask of its copies, the -inf mask of its scores) is kept out
 // of the loop's body: the last tile's softmax is a copy of the step of its
 // own, and the output is rescaled only where a row's max moved.
-template <bool kMax, bool kPreScaled, bool kFloorSum = false>
+template <bool kMax, bool kPreScaled, bool kFloorSum = false, int kHdT = kHd, bool kRope = false>
 __device__ __forceinline__ void attention_block(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, int64_t ldq, int64_t ldk, int64_t ldv, int64_t ldo, int q0, int n_q,
-    int n_valid, float scale_log2, unsigned char* smem) {
+    int n_valid, float scale_log2, unsigned char* smem, const Rope& rope = Rope()) {
+  static_assert(kHdT == 64 || kHdT == 128, "head dim 64 or 128");
+  static_assert(!kRope || kHdT == 128, "RoPE at head dim 128");
+  constexpr int kSub = kHdT / 64;          // 128-byte sub-tiles of a row
+  constexpr int kTileBytes = kBk * kHdT * 2;  // one K or V tile: 8 or 16 KB
+  constexpr int kQSub = kBlockRows * 128;  // one sub-tile of the Q block
   constexpr int kPassRows = kThreads / 8;  // rows the block copies at once: 8 chunks a row
   constexpr int kPasses = kBk / kPassRows;
   const uint32_t q_s = async_copy::shared_addr(smem);
-  const uint32_t kv_s = q_s + kBlockRows * kHd * 2;
+  const uint32_t kv_s = q_s + kBlockRows * kHdT * 2;
   const uint32_t ones_s = kv_s + kStages * 2 * kTileBytes;
+  const uint32_t tab_s = ones_s + kOnesBytes;
+  const float* tab = reinterpret_cast<const float*>(smem + (tab_s - q_s));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int n_tiles = (n_valid + kBk - 1) / kBk;
 
   // this thread's share of a K/V tile's copy: chunk threadIdx & 7 of rows
-  // threadIdx / 8 + kPassRows·i; the swizzle of those rows is the same
+  // threadIdx / 8 + kPassRows·i, in every sub-tile; the swizzle of those rows
+  // is the same
   const int copy_row = threadIdx.x >> 3, copy_chunk = threadIdx.x & 7;
   const uint32_t copy_dst = swz(copy_row, copy_chunk);
   const bf16* k_src = k + (int64_t)copy_row * ldk + copy_chunk * 8;  // of the next tile to copy
@@ -262,19 +346,25 @@ __device__ __forceinline__ void attention_block(
       const uint32_t dst = kv_s + (tile % kStages) * 2 * kTileBytes + copy_dst;
       if (tile + 1 < n_tiles) {  // a whole tile
 #pragma unroll
-        for (int i = 0; i < kPasses; ++i) {
-          cp_async16(dst + i * kPassRows * 128, k_src + (int64_t)i * kPassRows * ldk, 16);
-          cp_async16(dst + kTileBytes + i * kPassRows * 128,
-                     v_src + (int64_t)i * kPassRows * ldv, 16);
-        }
+        for (int i = 0; i < kPasses; ++i)
+#pragma unroll
+          for (int u = 0; u < kSub; ++u) {
+            cp_async16(dst + u * kSubBytes + i * kPassRows * 128,
+                       k_src + (int64_t)i * kPassRows * ldk + u * 64, 16);
+            cp_async16(dst + kTileBytes + u * kSubBytes + i * kPassRows * 128,
+                       v_src + (int64_t)i * kPassRows * ldv + u * 64, 16);
+          }
       } else {  // the last tile: rows >= n_valid become zeros (the copy names row 0's address)
 #pragma unroll
         for (int i = 0; i < kPasses; ++i) {
           const bool ok = tile * kBk + copy_row + i * kPassRows < n_valid;
-          cp_async16(dst + i * kPassRows * 128,
-                     ok ? k_src + (int64_t)i * kPassRows * ldk : k, ok ? 16 : 0);
-          cp_async16(dst + kTileBytes + i * kPassRows * 128,
-                     ok ? v_src + (int64_t)i * kPassRows * ldv : v, ok ? 16 : 0);
+#pragma unroll
+          for (int u = 0; u < kSub; ++u) {
+            cp_async16(dst + u * kSubBytes + i * kPassRows * 128,
+                       ok ? k_src + (int64_t)i * kPassRows * ldk + u * 64 : k, ok ? 16 : 0);
+            cp_async16(dst + kTileBytes + u * kSubBytes + i * kPassRows * 128,
+                       ok ? v_src + (int64_t)i * kPassRows * ldv + u * 64 : v, ok ? 16 : 0);
+          }
         }
       }
       k_src += (int64_t)kBk * ldk;
@@ -282,35 +372,48 @@ __device__ __forceinline__ void attention_block(
     }
     cp_async_commit();  // an empty group keeps the count of pending groups uniform
   };
+  // RoPE: this thread's rows of K tile `tile`, once its own copies of it have landed
+  auto rotate_k = [&](int tile) {
+    unsigned char* k_tile = smem + (kv_s - q_s) + (tile % kStages) * 2 * kTileBytes;
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i)
+      rope_rotate(k_tile, kSubBytes, copy_row + i * kPassRows, copy_chunk,
+                  tile * kBk + copy_row + i * kPassRows, n_valid, rope, tab);
+  };
 
-  uint32_t qf[4][4];  // the warp's 16 queries as A fragments, all of hd
-  float acc[8][4], s[8][4], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, alpha[2];
+  uint32_t qf[kHdT / 16][4];  // the warp's 16 queries as A fragments, all of hd
+  float acc[kSub][8][4], s[8][4], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, alpha[2];
   float lsum[4] = {0.f, 0.f, 0.f, 0.f};  // the row sums of the rounded p, as a 16 x 8 MMA tile
   uint32_t pf[4][4];  // p of the tile being multiplied
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int u = 0; u < kSub; ++u)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
 
   // s = q·kᵀ for key tile `tile`, issued and committed, not waited for
   auto issue_scores = [&](int tile) {
     const uint32_t k_s = kv_s + (tile % kStages) * 2 * kTileBytes;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // 16 dims a step: 32 bytes along the swizzled rows
-      wgmma_rs<false>(s, qf[kk], tile_desc(k_s + kk * 32), kk != 0);
+    for (int kk = 0; kk < kHdT / 16; ++kk)  // 16 dims a step: 32 bytes along the swizzled rows
+      wgmma_rs<false>(s, qf[kk], tile_desc(k_s + (kk >> 2) * kSubBytes + (kk & 3) * 32),
+                      kk != 0);
     wgmma_commit();
   };
   // acc += p·v and lsum += p·1 for key tile `tile`, issued and committed, not
   // waited for. The row sum rides on the tensor cores (an eighth of p·v's
-  // work) because on the other cores it costs an unpack and two adds per pair
-  // of scores, in a loop that is bound by such instructions.
+  // work at head dim 64) because on the other cores it costs an unpack and
+  // two adds per pair of scores, in a loop that is bound by such instructions.
   auto issue_pv = [&](int tile) {
     const uint32_t v_s = kv_s + (tile % kStages) * 2 * kTileBytes + kTileBytes;
     wgmma_fence();  // acc, lsum and pf were written by ordinary instructions
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // 16 keys a step: two 8-row groups of V
-      wgmma_rs<true>(acc, pf[kk], tile_desc(v_s + kk * 2048), 1);
+#pragma unroll
+      for (int u = 0; u < kSub; ++u)
+        wgmma_rs<true>(acc[u], pf[kk], tile_desc(v_s + u * kSubBytes + kk * 2048), 1);
       wgmma_rs_n8(lsum, pf[kk], tile_desc(ones_s));
     }
     wgmma_commit();
@@ -328,6 +431,10 @@ __device__ __forceinline__ void attention_block(
     load_kv(tile + kStages - 1);  // into the slot tile - 1 used
     issue_scores(tile + 1);
     issue_pv(tile);
+    if (kRope) {  // tile + 2's rows, beside the products; the next barrier hands them on
+      cp_async_wait<kStages - 3>();
+      rotate_k(tile + 2);
+    }
     wgmma_wait<0>(s);
     wgmma_wait<0>(acc);
     pin(lsum);
@@ -337,23 +444,40 @@ __device__ __forceinline__ void attention_block(
       rescale(acc, lsum, alpha);
   };
 
-  // Q rides in the first copy group, with tile 0
+  // Q (and the RoPE table) ride in the first copy group, with tile 0
 #pragma unroll
   for (int i = 0; i < kBlockRows * 8 / kThreads; ++i) {
     const int r = copy_row + i * kPassRows;
     const bool ok = q0 + r < n_q;
-    cp_async16(q_s + swz(r, copy_chunk), ok ? q + (int64_t)(q0 + r) * ldq + copy_chunk * 8 : q,
-               ok ? 16 : 0);
+#pragma unroll
+    for (int u = 0; u < kSub; ++u)
+      cp_async16(q_s + u * kQSub + swz(r, copy_chunk),
+                 ok ? q + (int64_t)(q0 + r) * ldq + u * 64 + copy_chunk * 8 : q, ok ? 16 : 0);
   }
+  if (kRope)
+    for (int i = threadIdx.x; i < (rope.grid_h + rope.grid_w) * kRopeAngles / 2; i += kThreads)
+      cp_async16(tab_s + 16 * i, rope.table + 4 * i, 16);
   for (int tile = 0; tile < kStages - 1; ++tile) load_kv(tile);
   for (int i = threadIdx.x; i < kOnesBytes / 4; i += kThreads)
     reinterpret_cast<uint32_t*>(smem + (ones_s - q_s))[i] = 0x3F803F80u;  // bf16 1.0, twice
   cp_async_wait<kStages - 2>();
   fence_proxy_async();
   __syncthreads();
+  if (kRope) {  // the table has landed for everyone: Q's rows, tile 0's and tile 1's
+    cp_async_wait<kStages - 3>();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(qf[kk], q_s + swz(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+    for (int i = 0; i < kBlockRows * 8 / kThreads; ++i)
+      rope_rotate(smem, kQSub, copy_row + i * kPassRows, copy_chunk,
+                  q0 + copy_row + i * kPassRows, n_q, rope, tab);
+    rotate_k(0);
+    rotate_k(1);
+    fence_proxy_async();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int kk = 0; kk < kHdT / 16; ++kk)
+    ldmatrix_x4(qf[kk], q_s + (kk >> 2) * kQSub +
+                            swz(warp * 16 + (lane & 15), (kk & 3) * 2 + (lane >> 4)));
 
   // tile 0's scores and softmax; then the steps; then the last tile's product
   issue_scores(0);
@@ -368,7 +492,9 @@ __device__ __forceinline__ void attention_block(
   issue_pv(n_tiles - 1);
   wgmma_wait<0>(acc);
   pin(lsum);
-  store_rows<kFloorSum>(acc, lsum, o, ldo, q0 + warp * 16, n_q, lane);
+#pragma unroll
+  for (int u = 0; u < kSub; ++u)
+    store_rows<kFloorSum>(acc[u], lsum, o + u * 64, ldo, q0 + warp * 16, n_q, lane);
 }
 
 }  // namespace attention_core

@@ -353,7 +353,7 @@ int launch_attention(const bf16* qkv, bf16* out, int B, int N, int n_valid, int 
 //             scratch qkv (B, N, 3D), scratch attn (B, N, D),
 //             scratch x2 (B, N, D), scratch mid (B, N, Hd), out (B, N, D)}.
 // Keys >= n_valid are left out of every softmax. Requires D = 64·H, D and
-// Hd multiples of 128, D <= 2048 (K11's widest row). `launches` is a
+// Hd multiples of 128, D <= 2048 (ops/fused_block.py::MAX_DIM). `launches` is a
 // mask of the five launches to run, bit 0 = (a) .. bit 4 = (e): 31 for the
 // block, one bit to time a launch alone on buffers a whole run has filled.
 // Returns the first cudaGetLastError() of the launches.

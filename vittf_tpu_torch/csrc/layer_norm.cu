@@ -22,7 +22,9 @@
 // whole 128-byte lines; the sums are warp shuffles, with no shared memory;
 // gamma, w and b (the same for every row) come through the read-only cache.
 // Blocks of 4 warps (8 or 16 ran 1-4% slower); the grid strides over the
-// rows. V is a template parameter, 1 to 8: D <= 2048.
+// rows. V is a template parameter: 1 to 8 (D <= 2048), and 16 for any wider
+// row up to 4096 (DINOv3 ViT-7B's D 4096: a lane holds its 128 values of x'
+// in registers, as at the narrower widths).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,7 +32,7 @@
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kMaxVecs = 8;  // a lane's vectors: D <= 8 * 8 * 32
+constexpr int kMaxVecs = 16;  // a lane's vectors: D <= 16 * 8 * 32
 constexpr int64_t kMaxBlocks = 132 * 64;
 enum Mode { kLn = 0, kResidualLn = 1, kResidual = 2 };
 
@@ -158,7 +160,7 @@ Kernel pick(int vecs, int mode) {
     case 6: return pick_mode<6>(mode);
     case 7: return pick_mode<7>(mode);
     case 8: return pick_mode<8>(mode);
-    default: return nullptr;
+    default: return vecs <= kMaxVecs ? pick_mode<kMaxVecs>(mode) : nullptr;
   }
 }
 
@@ -167,7 +169,7 @@ int lane_vectors(int dim) { return (dim / 8 + 31) / 32; }
 }  // namespace
 
 // x, a, x_out, y_out: (rows, dim) bf16, contiguous, 16-byte aligned; gamma, w,
-// b: (dim,) bf16, 16-byte aligned; dim a multiple of 8, at most 2048. The mode
+// b: (dim,) bf16, 16-byte aligned; dim a multiple of 8, at most 4096. The mode
 // follows from what is given: no a, LN (x_out unused); no w, residual (b and
 // y_out unused); both, residual + LN. gamma may be null.
 extern "C" int vittf_layer_norm(const void* x, const void* a, const void* gamma, const void* w,

@@ -57,9 +57,19 @@ __device__ __forceinline__ void pin(T (&d)[kTiles][4]) {
 #pragma unroll
   for (int j = 0; j < kTiles; ++j) pin(d[j]);
 }
+template <typename T, int kParts, int kTiles>
+__device__ __forceinline__ void pin(T (&d)[kParts][kTiles][4]) {
+#pragma unroll
+  for (int u = 0; u < kParts; ++u) pin(d[u]);
+}
 // the wait and the pin together
 template <int kPending, typename T, int kTiles>
 __device__ __forceinline__ void wgmma_wait(T (&d)[kTiles][4]) {
+  wgmma_wait_group<kPending>();
+  pin(d);
+}
+template <int kPending, typename T, int kParts, int kTiles>
+__device__ __forceinline__ void wgmma_wait(T (&d)[kParts][kTiles][4]) {
   wgmma_wait_group<kPending>();
   pin(d);
 }

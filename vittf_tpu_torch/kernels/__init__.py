@@ -71,6 +71,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, i32, i32, i32, i32, i32, vp, f32, vp,
     ]
     lib.vittf_attention_fwd.restype = i32
+    lib.vittf_rope_attention_fwd.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, vp, f32, vp, i32, i32, i32, vp,
+    ]
+    lib.vittf_rope_attention_fwd.restype = i32
     lib.vittf_similarity.argtypes = [
         vp, vp, vp, vp, i32, i32, i32, i32, f32, f32, i32, vp,
     ]

@@ -21,6 +21,11 @@ from vittf_tpu_torch.models.vit import ViTConfig
 # ViT-g/14 (``vit_giant2``) has a SwiGLU FFN of width 4096
 # (``ffn_layer='swiglufused'``); the ``_reg`` models add 4 register tokens and
 # resize the position grid to a size with antialiasing (offset 0).
+# DINOv3 (facebookresearch/dinov3 hubconf ``dinov3_vit7b16``, ``vit_7b``): patch
+# 16, D 4096, 40 blocks, 32 heads of 128, SwiGLU of width 8192 (ffn_ratio 3,
+# ``swiglu64``), 4 storage tokens (the port's registers), LayerScale, no qkv
+# bias, LayerNorm eps 1e-5 (``layernormbf16``), axial RoPE of base 100 and no
+# position table.
 DINO_ARCHS = {
     "vits16": ViTConfig(16, 384, 12, 6, name="vits16"),
     "vits8": ViTConfig(8, 384, 12, 6, name="vits8"),
@@ -37,15 +42,25 @@ DINOV2_ARCHS = {
                             name="vitg14_reg", ffn="swiglu", num_register_tokens=4,
                             interpolate_antialias=True, interpolate_offset=0.0),
 }
-ALL_ARCHS = {**DINO_ARCHS, **DINOV2_ARCHS}
+DINOV3_ARCHS = {
+    "vit7b16": ViTConfig(16, 4096, 40, 32, mlp_ratio=3.0, img_size=224, layerscale=True,
+                         name="vit7b16", ffn="swiglu", num_register_tokens=4, position="rope",
+                         qkv_bias=False, norm_eps=1e-5),
+}
+ALL_ARCHS = {**DINO_ARCHS, **DINOV2_ARCHS, **DINOV3_ARCHS}
 
 
 def resolve_model(
-    dino_model: str | None = None, dino2_model: str | None = None
+    dino_model: str | None = None, dino2_model: str | None = None,
+    dino3_model: str | None = None,
 ) -> ViTConfig:
     """Name → config, with the reference's default (vits8) (infer.py:239-264)."""
-    if dino_model and dino2_model:
-        raise ValueError("Set only one of dino_model / dino2_model")
+    if sum(bool(n) for n in (dino_model, dino2_model, dino3_model)) > 1:
+        raise ValueError("Set only one of dino_model / dino2_model / dino3_model")
+    if dino3_model:
+        if dino3_model not in DINOV3_ARCHS:
+            raise ValueError(f"Unknown DINOv3 arch: {dino3_model}")
+        return DINOV3_ARCHS[dino3_model]
     if dino2_model:
         if dino2_model not in DINOV2_ARCHS:
             raise ValueError(f"Unknown DINOv2 arch: {dino2_model}")
@@ -57,15 +72,19 @@ def resolve_model(
 
 
 def _backbone_keys(cfg: ViTConfig) -> list[str]:
-    keys = ["cls_token", "pos_embed", "patch_embed.proj.weight",
+    keys = ["cls_token", "patch_embed.proj.weight",
             "patch_embed.proj.bias", "norm.weight", "norm.bias"]
+    if cfg.position == "learned":
+        keys.append("pos_embed")
     if cfg.num_register_tokens:
         keys.append("register_tokens")
     ffn = ("mlp.w12", "mlp.w3") if cfg.ffn == "swiglu" else ("mlp.fc1", "mlp.fc2")
     for i in range(cfg.depth):
         b = f"blocks.{i}"
         for name in ("norm1", "norm2", "attn.qkv", "attn.proj", *ffn):
-            keys += [f"{b}.{name}.weight", f"{b}.{name}.bias"]
+            keys.append(f"{b}.{name}.weight")
+            if name != "attn.qkv" or cfg.qkv_bias:
+                keys.append(f"{b}.{name}.bias")
         if cfg.layerscale:
             keys += [f"{b}.ls1.gamma", f"{b}.ls2.gamma"]
     return keys

@@ -29,9 +29,19 @@ register tokens (inserted after CLS, without a position embedding) and the
 position grid resized to a size with antialiasing (``interpolate_offset`` 0,
 ``interpolate_antialias``). The captured tokens start with
 ``ViTConfig.prefix_tokens`` non-patch tokens: CLS and the registers.
+
+DINOv3 (facebookresearch/dinov3 ``vision_transformer.py``) has no position
+table (``position='rope'``): every block rotates the patch rows of q and k by
+an axial RoPE (``rope_table``, built once a forward and handed to each
+block's attention as ``ops.attention.Rope``), and its qkv projection has no
+bias (``qkv_bias``) and its LayerNorms eps 1e-5 (``norm_eps``); its SwiGLU
+width (``swiglu64``: 8192 for ViT-7B) is what the rounding to 8 gives too.
+Its 4 storage tokens are the port's register tokens; w1 and w2 are held as
+one ``mlp.w12``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,11 +49,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vittf_tpu_torch.ops.attention import multi_head_attention
+from vittf_tpu_torch.ops.attention import Rope, multi_head_attention
 from vittf_tpu_torch.ops.fused_block import fused_block
 from vittf_tpu_torch.ops.layer_norm import layer_norm, residual, residual_layer_norm
 from vittf_tpu_torch.ops.resize import resize_cubic_scaled
 from vittf_tpu_torch.ops.swiglu import swiglu
+from vittf_tpu_torch.utils.logging import span
 
 
 # block_impl -> the fused block's softmax_max, None for per-op blocks. The
@@ -74,10 +85,19 @@ class ViTConfig:
     # to the size (h, w) when the offset is 0; antialiased or not
     interpolate_antialias: bool = False
     interpolate_offset: float = 0.1
+    # 'learned': a position table added at embed time (DINO, DINOv2); 'rope':
+    # none, DINOv3's axial RoPE on q and k in every block (``rope_table``)
+    position: str = "learned"
+    qkv_bias: bool = True  # DINOv3's qkv projection has none
+    norm_eps: float = 1e-6  # DINOv3: 1e-5
 
     def __post_init__(self):
         if self.ffn not in ("mlp", "swiglu"):
             raise ValueError(f"unknown ffn: {self.ffn!r}")
+        if self.position not in ("learned", "rope"):
+            raise ValueError(f"unknown position: {self.position!r}")
+        if self.position == "rope" and self.head_dim % 4:
+            raise ValueError(f"axial RoPE needs a head dim in multiples of 4, got {self.head_dim}")
 
     @property
     def head_dim(self) -> int:
@@ -91,7 +111,8 @@ class ViTConfig:
     def hidden_dim(self) -> int:
         hidden = int(self.embed_dim * self.mlp_ratio)
         if self.ffn == "swiglu":
-            # DINOv2's SwiGLUFFNFused: two thirds of the MLP width, rounded up to 8
+            # DINOv2's SwiGLUFFNFused: two thirds of the MLP width, rounded
+            # up to 8
             return (int(hidden * 2 / 3) + 7) // 8 * 8
         return hidden
 
@@ -113,7 +134,9 @@ def init_vit_params(
     list, ``(0, 0)`` for ``PRNGKey(0)``. Kernels are drawn in the JAX layout
     (HWIO conv, (in, out) linears) and transposed into torch's. A SwiGLU FFN
     draws w12/w3 where fc1/fc2 would be, and register tokens are drawn last,
-    so a configuration without either draws what it always drew.
+    so a configuration without either draws what it always drew; a RoPE
+    model draws no position table and a qkv without bias holds no zeros for
+    one, so every learned-table model with qkv biases draws as before.
     """
     rng = np.random.default_rng(list(key))
 
@@ -133,10 +156,11 @@ def init_vit_params(
         "cls_token": zeros(1, 1, D),
         "patch_embed.proj.weight": tn((P, P, 3, D)).permute(3, 2, 0, 1).contiguous(),
         "patch_embed.proj.bias": zeros(D),
-        "pos_embed": tn((1, 1 + cfg.pos_grid**2, D)),
         "norm.weight": ones(D),
         "norm.bias": zeros(D),
     }
+    if cfg.position == "learned":
+        sd["pos_embed"] = tn((1, 1 + cfg.pos_grid**2, D))
     H = cfg.hidden_dim
     ffn = ((("mlp.w12", D, 2 * H), ("mlp.w3", H, D)) if cfg.ffn == "swiglu"
            else (("mlp.fc1", D, H), ("mlp.fc2", H, D)))
@@ -144,7 +168,8 @@ def init_vit_params(
         b = f"blocks.{i}"
         for name, din, dout in (("attn.qkv", D, 3 * D), ("attn.proj", D, D), *ffn):
             sd[f"{b}.{name}.weight"] = tn((din, dout)).T.contiguous()
-            sd[f"{b}.{name}.bias"] = zeros(dout)
+            if name != "attn.qkv" or cfg.qkv_bias:
+                sd[f"{b}.{name}.bias"] = zeros(dout)
         for ln in ("norm1", "norm2"):
             sd[f"{b}.{ln}.weight"] = ones(D)
             sd[f"{b}.{ln}.bias"] = zeros(D)
@@ -187,11 +212,36 @@ def interpolate_pos_embed(
     return torch.cat([pos_embed[:, :1], patch_pos], dim=1)
 
 
+ROPE_BASE = 100.0  # DINOv3's RoPE base: periods ROPE_BASE^(4j/hd)
+
+
+def rope_table(grid_hw: tuple[int, int], head_dim: int, device=None) -> torch.Tensor:
+    """DINOv3's axial RoPE angles of an (h, w) patch grid as
+    ``ops.attention.Rope`` takes them: (2, h + w, head_dim / 4) fp32, cos
+    then sin, the rows by grid row and then by grid column.
+
+    ``RopePositionEmbedding`` in eval mode with ``normalize_coords=
+    'separate'`` (dinov3 ``layers/rope_position_encoding.py``): periods
+    ROPE_BASE^(2j / (hd/2)), coordinates 2·(i + 0.5)/h − 1 and 2·(j + 0.5)/w − 1,
+    angles 2π·c / period, in fp32 with the published code's operations in
+    its order. Its (h·w, hd) table is [row angles | column angles] of each
+    patch, tiled twice; this holds each axis's angles once.
+    """
+    q = head_dim // 4
+    periods = ROPE_BASE ** (2 * torch.arange(q, dtype=torch.float32, device=device) / (head_dim // 2))
+    coords = torch.cat([torch.arange(0.5, n, dtype=torch.float32, device=device) / n
+                        for n in grid_hw])
+    coords = 2.0 * coords - 1.0
+    angles = 2 * math.pi * coords[:, None] / periods[None, :]
+    return torch.stack([torch.cos(angles), torch.sin(angles)])
+
+
 def embed_tokens(images, weight, bias, cls_token, pos_embed, register_tokens=None,
                  offset: float = 0.1, antialias: bool = False) -> torch.Tensor:
     """Patch embed as a token GEMM + CLS + interpolated pos embed, then the
     register tokens (if any) after CLS, without a position embedding
-    (DINOv2's ``prepare_tokens_with_masks``).
+    (DINOv2's ``prepare_tokens_with_masks``). ``pos_embed`` None (DINOv3):
+    no position table.
 
     The stride-P conv (``weight`` (D, C, P, P)) is a disjoint patch regroup
     and one (h·w, P²C) × (P²C, D) matmul, with the (i, j, c) contraction
@@ -206,7 +256,8 @@ def embed_tokens(images, weight, bias, cls_token, pos_embed, register_tokens=Non
     kernel = weight.permute(2, 3, 1, 0).reshape(P * P * C, D)
     x = torch.matmul(xp, kernel) + bias
     x = torch.cat([cls_token.expand(B, 1, D).to(x.dtype), x], dim=1)
-    x = x + interpolate_pos_embed(pos_embed, (h, ww), offset, antialias).to(x.dtype)
+    if pos_embed is not None:
+        x = x + interpolate_pos_embed(pos_embed, (h, ww), offset, antialias).to(x.dtype)
     if register_tokens is None:
         return x
     regs = register_tokens.expand(B, -1, -1).to(x.dtype)
@@ -220,9 +271,9 @@ class LayerScale(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, qkv_bias: bool = True):
         super().__init__()
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
 
@@ -236,14 +287,17 @@ class Mlp(nn.Module):
 def check_block_impl(cfg: ViTConfig, block_impl: str) -> bool | None:
     """The fused block's ``softmax_max`` for ``block_impl`` (``BLOCK_IMPLS``),
     None for per-op blocks. Raises on an unknown name, or where a fused name
-    asks the fused block (K3), which computes a GELU MLP, to run ``cfg``'s
-    SwiGLU blocks."""
+    asks the fused block (K3), which computes a GELU MLP at head dim 64
+    without RoPE, to run ``cfg``'s SwiGLU or RoPE blocks."""
     if block_impl not in BLOCK_IMPLS:
         raise ValueError(f"unknown block_impl: {block_impl!r} (one of {', '.join(BLOCK_IMPLS)})")
     softmax_max = BLOCK_IMPLS[block_impl]
     if softmax_max is not None and cfg.ffn != "mlp":
         raise ValueError(f"the fused block computes a GELU MLP; {cfg.name}'s {cfg.ffn} "
                          f"FFN runs with block_impl='xla'")
+    if softmax_max is not None and cfg.position != "learned":
+        raise ValueError(f"the fused block's attention has no RoPE; {cfg.name} runs with "
+                         f"block_impl='xla'")
     return softmax_max
 
 
@@ -264,22 +318,23 @@ class Block(nn.Module):
         D = cfg.embed_dim
         self.num_heads = cfg.num_heads
         self.ffn = cfg.ffn
-        self.norm1 = nn.LayerNorm(D, eps=1e-6)
-        self.attn = Attention(D)
-        self.norm2 = nn.LayerNorm(D, eps=1e-6)
+        self.norm1 = nn.LayerNorm(D, eps=cfg.norm_eps)
+        self.attn = Attention(D, cfg.qkv_bias)
+        self.norm2 = nn.LayerNorm(D, eps=cfg.norm_eps)
         self.mlp = (SwiGLUFFN if cfg.ffn == "swiglu" else Mlp)(D, cfg.hidden_dim)
         if cfg.layerscale:
             self.ls1 = LayerScale(D)
             self.ls2 = LayerScale(D)
 
-    def forward(self, x, precision="default", attn_impl="auto", capture=None):
+    def forward(self, x, precision="default", attn_impl="auto", capture=None, rope=None):
         """Returns (x, captured): captured is the qkv projection output
-        ('qkv'), the MLP output before the residual ('mlp') or None.
-        ``attn_impl`` ('auto' | 'plain') picks the kernels or the plain twins
-        for the attention, the SwiGLU gate and the residual + LayerNorm
-        passes (``ops.layer_norm``) alike."""
+        ('qkv', before RoPE), the MLP output before the residual ('mlp') or
+        None. ``attn_impl`` ('auto' | 'plain') picks the kernels or the plain
+        twins for the attention, the SwiGLU gate and the residual + LayerNorm
+        passes (``ops.layer_norm``) alike. ``rope``: the forward's
+        ``ops.attention.Rope`` (DINOv3), or None."""
         qkv = self.attn.qkv(layer_norm(x, self.norm1, attn_impl))  # (B, N, 3D)
-        a = self.attn.proj(multi_head_attention(qkv, self.num_heads, attn_impl))
+        a = self.attn.proj(multi_head_attention(qkv, self.num_heads, attn_impl, rope))
         gamma1 = self.ls1.gamma if hasattr(self, "ls1") else None
         x, y = residual_layer_norm(x, a, gamma1, self.norm2, attn_impl)
         if self.ffn == "swiglu":
@@ -313,24 +368,37 @@ class VisionTransformer(nn.Module):
         D = cfg.embed_dim
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.patch_embed = PatchEmbed(cfg, in_chans)
-        self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid**2, D))
+        if cfg.position == "learned":
+            self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid**2, D))
         if cfg.num_register_tokens:
             self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, D))
         self.blocks = nn.ModuleList([Block(cfg) for _ in range(cfg.depth)])
-        self.norm = nn.LayerNorm(D, eps=1e-6)
+        self.norm = nn.LayerNorm(D, eps=cfg.norm_eps)
 
     @classmethod
     def from_state_dict(cls, cfg: ViTConfig, state_dict: dict) -> "VisionTransformer":
         """Build with the patch embed's channel count taken from the weights."""
         in_chans = state_dict["patch_embed.proj.weight"].shape[1]
-        model = cls(cfg, in_chans).to(state_dict["pos_embed"].dtype)
+        model = cls(cfg, in_chans).to(state_dict["cls_token"].dtype)
         model.load_state_dict(state_dict)
         return model.eval().requires_grad_(False)
 
     def _embed(self, images: torch.Tensor) -> torch.Tensor:
         return embed_tokens(images, self.patch_embed.proj.weight, self.patch_embed.proj.bias,
-                            self.cls_token, self.pos_embed, getattr(self, "register_tokens", None),
+                            self.cls_token, getattr(self, "pos_embed", None),
+                            getattr(self, "register_tokens", None),
                             self.cfg.interpolate_offset, self.cfg.interpolate_antialias)
+
+    def _rope(self, images: torch.Tensor) -> Rope | None:
+        """The forward's RoPE (one table for every block), None for a
+        learned position table."""
+        if self.cfg.position != "rope":
+            return None
+        P = self.cfg.patch_size
+        grid = (images.shape[-2] // P, images.shape[-1] // P)
+        with span("vit.rope_table"):
+            table = rope_table(grid, self.cfg.head_dim, images.device)
+        return Rope(table, grid, self.cfg.prefix_tokens)
 
     @torch.no_grad()
     def forward_raw(
@@ -386,6 +454,7 @@ class VisionTransformer(nn.Module):
         """The forward of ``forward_raw`` and ``forward``."""
         softmax_max = check_block_impl(self.cfg, block_impl)
         x = self._embed(images)
+        rope = self._rope(images)
         use_fused = softmax_max is not None and x.dtype == torch.bfloat16
         qkv_last = None
         depth = len(self.blocks)
@@ -400,12 +469,13 @@ class VisionTransformer(nn.Module):
                 if capture_thirds is not None:
                     D = self.cfg.embed_dim
                     weight = torch.cat([weight[t * D:(t + 1) * D] for t in capture_thirds])
-                    bias = torch.cat([bias[t * D:(t + 1) * D] for t in capture_thirds])
+                    if bias is not None:
+                        bias = torch.cat([bias[t * D:(t + 1) * D] for t in capture_thirds])
                 return None, F.linear(y, weight, bias)
             if use_fused and want is None:
                 x = fused_block(x, blk, self.cfg.num_heads, softmax_max=softmax_max)
                 continue
-            x, cap = blk(x, precision, attn_impl, capture=want)
+            x, cap = blk(x, precision, attn_impl, capture=want, rope=rope)
             if cap is not None:
                 qkv_last = cap
         return layer_norm(x, self.norm, attn_impl), qkv_last

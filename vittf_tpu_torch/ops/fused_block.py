@@ -41,9 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from vittf_tpu_torch import kernels
-from vittf_tpu_torch.ops.layer_norm import MAX_DIM, layer_norm_plain
+from vittf_tpu_torch.ops.layer_norm import layer_norm_plain
 
 _LOG2E = math.log2(math.e)
+MAX_DIM = 2048  # the widest D the kernel takes (csrc/fused_block.cu); K11 rows reach 4096
 _KERNEL_HEAD_DIM = 64
 ALL_LAUNCHES = 31  # the kernel's five launches as a bit mask, (a) LN1+qkv = 1 .. (e) fc2 = 16
 
@@ -198,7 +199,7 @@ def check_kernel_shapes(D: int, Hd: int, num_heads: int, dtype: torch.dtype) -> 
     """Raise on what the CUDA kernel does not take: bf16, head dim 64, D and
     the MLP width ``Hd`` in multiples of 128 (the column tiles are 192 or 128
     wide, a K chunk 64), D at most 2048 (above 512 its LayerNorms are
-    launches of ``csrc/layer_norm.cu``, which holds a row of up to 2048)."""
+    launches of ``csrc/layer_norm.cu``)."""
     if D % num_heads or D // num_heads != _KERNEL_HEAD_DIM:
         raise ValueError(f"fused_block kernel supports head dim 64, got {D / num_heads}")
     if dtype != torch.bfloat16:

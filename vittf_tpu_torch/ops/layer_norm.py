@@ -25,7 +25,7 @@ import torch
 from vittf_tpu_torch import kernels
 
 _VEC = 8  # bf16 values in the kernel's 16-byte vector
-MAX_DIM = 2048  # the widest row a warp holds in registers (8 vectors a lane)
+MAX_DIM = 4096  # the widest row a warp holds in registers (16 vectors a lane)
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -154,10 +154,14 @@ def tp_vit_forward(
     shards: heads and the MLP width split over the mesh's ``model`` axis,
     the embed, LayerNorms and residuals replicated. Returns (tokens (B, 1+hw,
     D), the last block's full capture) on every rank. The MLP's split is
-    fc1's columns and fc2's rows: a SwiGLU FFN raises ``ValueError``."""
+    fc1's columns and fc2's rows: a SwiGLU FFN raises ``ValueError``, as
+    does a RoPE model (DINOv3), whose heads take no learned position table."""
     if cfg.ffn != "mlp":
         raise ValueError(f"the tensor-parallel block splits a GELU MLP; {cfg.name} has a "
                          f"{cfg.ffn} FFN")
+    if cfg.position != "learned":
+        raise ValueError(f"the tensor-parallel forward adds a learned position table; "
+                         f"{cfg.name} has {cfg.position} positions")
     m = mesh.size(2)
     if cfg.num_heads % m:
         raise ValueError(f"{cfg.num_heads} heads do not split over {m} model ranks")

@@ -123,7 +123,11 @@ def pp_vit_forward(
     """Full ViT forward with pipeline-parallel blocks: the patch and position
     embeds and the final LayerNorm run replicated, the block stack streams
     through the pipe. The batch must divide into ``n_micro`` microbatches.
-    Returns (tokens, qkv_last) as ``VisionTransformer.forward_raw``."""
+    Returns (tokens, qkv_last) as ``VisionTransformer.forward_raw``. A RoPE
+    model (DINOv3) raises ``ValueError``: the stages take no RoPE table."""
+    if cfg.position != "learned":
+        raise ValueError(f"the pipeline-parallel forward adds a learned position table; "
+                         f"{cfg.name} has {cfg.position} positions")
     B = images.shape[0]
     if B % n_micro:
         raise ValueError(f"batch {B} not divisible by {n_micro} microbatches")

@@ -136,7 +136,7 @@ def _slice_batch_features(
     normalization runs here, after the nearest resize (which commutes with
     elementwise ops exactly), so the volume stays compact until now.
     """
-    dtype = model.pos_embed.dtype
+    dtype = model.cls_token.dtype
     imgs = resize_nearest(batch, img_hw)  # raw dtype
     imgs = (imgs.float() - mima[0]) / (mima[1] - mima[0])
     if imgs.shape[1] == 1 and model.patch_embed.proj.weight.shape[1] == 1:

@@ -84,12 +84,36 @@ FAULTS = [
      [(AC, "  lsum[0] *= alpha[0];\n  lsum[1] *= alpha[0];\n  lsum[2] *= alpha[1];\n"
            "  lsum[3] *= alpha[1];\n", "")]),
     ("K1 V key step 1024 bytes instead of 2048", "attention",
-     [(AC, "tile_desc(v_s + kk * 2048)", "tile_desc(v_s + kk * 1024)")]),
+     [(AC, "tile_desc(v_s + u * kSubBytes + kk * 2048)",
+       "tile_desc(v_s + u * kSubBytes + kk * 1024)")]),
     ("K1 row sums read before the product that takes them has finished", "attention",
      [(AC, "  issue_pv(n_tiles - 1);\n  wgmma_wait<0>(acc);\n  pin(lsum);\n",
        "  issue_pv(n_tiles - 1);\n")]),
     ("K1 ones operand left unfilled", "attention",
      [(AC, "0x3F803F80u;  // bf16 1.0, twice", "0u;")]),
+    ("control: no edit", "rope_attention", []),
+    ("K1 RoPE: K tiles after the first left unrotated", "rope_attention",
+     [(AC, "      rotate_k(tile + 2);\n", ""), (AC, "    rotate_k(1);\n", "")]),
+    ("K1 RoPE: prefix rows rotated at patch 0's angles", "rope_attention",
+     [(AC, "  const int p = abs_row - rope.prefix;\n  if (p < 0 || abs_row >= n_valid) return;",
+       "  const int p = max(abs_row - rope.prefix, 0);\n  if (abs_row >= n_valid) return;")]),
+    ("K1 RoPE: the column angles where the row angles belong", "rope_attention",
+     [(AC, "const int trow = chunk < 4 ? gi : rope.grid_h + (p - gi * rope.grid_w);",
+       "const int trow = rope.grid_h + (p - gi * rope.grid_w);")]),
+    ("K1 RoPE: V's second 64 dims not multiplied", "rope_attention",
+     [(AC, "#pragma unroll\n      for (int u = 0; u < kSub; ++u)\n        wgmma_rs<true>",
+       "#pragma unroll\n      for (int u = 0; u < 1; ++u)\n        wgmma_rs<true>")]),
+    ("control: no edit", "layer_norm_wide", []),
+    ("K11 D 4096: rows cut to 8 vectors a lane", "layer_norm_wide",
+     [(LN, "default: return vecs <= kMaxVecs ? pick_mode<kMaxVecs>(mode) : nullptr;",
+       "default: return vecs <= kMaxVecs ? pick_mode<8>(mode) : nullptr;")]),
+    ("K11 D 4096: gamma dropped", "layer_norm_wide",
+     [(LN, "          if (gamma != nullptr) {", "          if (false) {")]),
+    ("K11 D 4096: statistics taken in bf16", "layer_norm_wide",
+     [(LN, "const float mu = __fmul_rn(warp_sum(sum), inv_d);",
+       "const float mu = round_bf16(__fmul_rn(warp_sum(sum), inv_d));"),
+      (LN, "const float rstd = rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), eps));",
+       "const float rstd = round_bf16(rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), eps)));")]),
     ("control: no edit", "similarity", []),
     ("K2 skip the last feature slab", "similarity",
      [(SIM, "#pragma unroll\n    for (int k = 0; k < kBk; k += 4) {\n      float4 y[kAj];",
@@ -299,8 +323,9 @@ ATTENTION_ABLATION = [
     ("no K/V copies after the first tiles",
      [(AC, "    load_kv(tile + kStages - 1);  // into the slot tile - 1 used",
        "    cp_async_commit();")]),
-    ("no p.v product", [(AC, "      wgmma_rs<true>(acc, pf[kk], tile_desc(v_s + kk * 2048), 1);",
-                         "      ;")]),
+    ("no p.v product",
+     [(AC, "        wgmma_rs<true>(acc[u], pf[kk], tile_desc(v_s + u * kSubBytes + kk * 2048), 1);",
+       "        ;")]),
     ("no row sums on the tensor cores",
      [(AC, "      wgmma_rs_n8(lsum, pf[kk], tile_desc(ones_s));", "      lsum[0] = lsum[2] = 1.f;")]),
     ("no scores product after tile 0",
@@ -591,12 +616,16 @@ def run_graph_faults(cs, torch) -> list:
     return verdicts
 
 
-def run_variant(name, edits, check, kernels) -> bool | None:
-    """Build ``edits`` into a copy of the sources and run ``check`` with the
-    copy's library loaded; prints the verdict, returns whether it passed
-    (None: an edit did not apply and nothing ran)."""
-    import torch
+class EditDoesNotApply(ValueError):
+    pass
 
+
+@contextlib.contextmanager
+def edited_library(edits, kernels):
+    """The kernel library built from a copy of the sources with ``edits``
+    applied, loaded for the ``with`` block; the sources' own library after
+    it. Raises ``EditDoesNotApply`` before any build where an ``old`` string
+    does not occur exactly once."""
     orig = kernels.CSRC
     tmp = Path(tempfile.mkdtemp(prefix="vittf_variant_"))
     try:
@@ -605,24 +634,35 @@ def run_variant(name, edits, check, kernels) -> bool | None:
             path = tmp / "csrc" / fname
             text = path.read_text()
             if text.count(old) != 1:
-                print(f"EDIT DOES NOT APPLY {name}: {old!r} occurs {text.count(old)} times "
-                      f"in {fname}")
-                return None
+                raise EditDoesNotApply(f"{old!r} occurs {text.count(old)} times in {fname}")
             path.write_text(text.replace(old, new))
         kernels.CSRC, kernels._lib = tmp / "csrc", None
-        try:
-            kernels.load_library()
-            out = check()
-            print(f"PASSED {name}: {out if isinstance(out, str) else ''}")
-            return True
-        except (AssertionError, RuntimeError) as e:
-            print(f"FAILED {name}: {str(e)[:300]}")
-            return False
-        finally:
-            torch.cuda.synchronize()
+        yield kernels.load_library()
     finally:
         kernels.CSRC, kernels._lib = orig, None
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_variant(name, edits, check, kernels) -> bool | None:
+    """Build ``edits`` into a copy of the sources and run ``check`` with the
+    copy's library loaded; prints the verdict, returns whether it passed
+    (None: an edit did not apply and nothing ran)."""
+    import torch
+
+    try:
+        with edited_library(edits, kernels):
+            try:
+                out = check()
+                print(f"PASSED {name}: {out if isinstance(out, str) else ''}")
+                return True
+            except (AssertionError, RuntimeError) as e:
+                print(f"FAILED {name}: {str(e)[:300]}")
+                return False
+            finally:
+                torch.cuda.synchronize()
+    except EditDoesNotApply as e:
+        print(f"EDIT DOES NOT APPLY {name}: {e}")
+        return None
 
 
 def main(argv=None) -> int:
