@@ -124,7 +124,9 @@ quality harness and the multi-device layer. Phases:
    and spills with ``--ptxas``);
 5g. DINOv3: K1's RoPE mode at head dim 128 (``phase_rope_attention``)
    against ``rope_plain`` then ``attention_plain`` at the ViT-7B/16 cell's
-   (32, 32, 1029, 128) and ragged grids and prefixes, peaked rows, a fused
+   (32, 32, 1029, 128) and ragged grids and prefixes, the edges of its
+   schedule (N = 1, 5, 63 mod 64, a last block's second consumer short of
+   64 queries, N a multiple of 128 without a prefix), peaked rows, a fused
    qkv buffer, equal to its repeats, timed beside its bound; K11 at D 4096
    (``phase_layer_norm_wide``) as 5f holds the narrow widths; then the path
    (``phase_rope_path``): ViT-7B/16 at full width and three blocks through
@@ -2581,17 +2583,25 @@ def phase_rope_attention(gen):
     bf16 values (the rotated q and k rounded to bf16, as the kernel rounds
     them) and 0.05·max|ref| of the bf16 twin, each result equal to its
     repeat. Shapes: the ViT-7B/16 cell's (32, 32, 1029, 128) over 32 x 32
-    patches after 5 prefix rows; one tile (N 17: 3 x 4 after 5), exact
-    tiles without a prefix (64: 8 x 8), one key and one query past a tile
-    (65 and 129: 8 x 8 after 1, 11 x 11 after 8), a grid of another aspect
-    (2 x 40 after 5), and peaked rows (q x 8); and q, k, v as the strided
-    views of a fused (B, N, 3D) qkv buffer. Timed at the cell's shape
-    beside its bound, the twin and ``scaled_dot_product_attention`` on q
-    and k rotated beforehand. Returns the kernel entry."""
+    patches after 5 prefix rows (more work items than SMs: each persistent
+    block walks ~70 of them); one tile (N 17: 3 x 4 after 5), exact tiles
+    without a prefix (64: 8 x 8), one key and one query past a tile (65 and
+    129: 8 x 8 after 1, 11 x 11 after 8), a grid of another aspect (2 x 40
+    after 5), and peaked rows (q x 8); the edges of the kernel's schedule of
+    64-key tiles and 128-query blocks, two consumers of 64 queries each:
+    N = 63, 5 and 1 mod 64 with the last block's second consumer holding 63,
+    5 and 1 queries (127: 11 x 11 after 6; 197: 12 x 16 after 5; 321: 16 x
+    20 after 1), and N a multiple of 128 without a prefix (256: 16 x 16);
+    and q, k, v as the strided views of a fused (B, N, 3D) qkv buffer. Timed
+    at the cell's shape beside its bound, the twin and
+    ``scaled_dot_product_attention`` on q and k rotated beforehand. Returns
+    the kernel entry."""
     cases = [(ROPE_SHAPE, ROPE_GRID, 1.0), ((2, 4, 17, 128), (3, 4), 1.0),
              ((2, 4, 64, 128), (8, 8), 8.0), ((2, 4, 65, 128), (8, 8), 1.0),
              ((2, 4, 129, 128), (11, 11), 8.0), ((2, 4, 85, 128), (2, 40), 1.0),
-             ((2, 4, 1029, 128), (32, 32), 8.0)]
+             ((2, 4, 1029, 128), (32, 32), 8.0), ((2, 4, 127, 128), (11, 11), 1.0),
+             ((2, 4, 197, 128), (12, 16), 8.0), ((1, 3, 321, 128), (16, 20), 1.0),
+             ((2, 4, 256, 128), (16, 16), 1.0)]
     before = attention.rope_launches
     for shape, grid, q_scale in cases:
         q, k, v, rope = rope_case(shape, grid, gen, q_scale)
@@ -3866,7 +3876,7 @@ def main() -> int:
          n_blocked[3]),
         ("chain_gemm", "chain_gemm.cu", "scripts/bench_int8_gemm.py:60", n_k9),
         ("swiglu", "swiglu.cu", "none (DINOv2's SwiGLU gate)", n_swiglu),
-        ("rope_attention", "attention.cu", "none (DINOv3's RoPE attention at head dim 128)",
+        ("rope_attention", "rope_attention.cu", "none (DINOv3's RoPE attention at head dim 128)",
          n_rope),
         ("layer_norm", "layer_norm.cu", "none (the per-op block's residual adds and "
          "LayerNorms, which XLA fuses)", n_ln),

@@ -37,6 +37,19 @@ def test_the_dinov3_modes_have_three_faults_of_their_own(kernel):
                                               else "layer_norm_wide"}
 
 
+def test_the_rope_mode_faults_and_ablation_edit_its_own_source():
+    """K1's RoPE mode is its own warp-specialised kernel (``rope_attention.cu``,
+    reusing ``attention_core.cuh::rope_rotate``): at least three of its faults
+    break the new source itself, and its ablation takes the rotation off and
+    puts the two consumers in lock step there."""
+    faults = [edits for name, _, edits in kv.FAULTS if edits and name.startswith("K1 RoPE")]
+    assert sum(all(f == kv.RA for f, _, _ in edits) for edits in faults) >= 3
+    ablation = {name: edits for name, edits in kv.ATTENTION_ABLATION if name.startswith("RoPE mode")}
+    for part in ("no rotation", "lock step"):
+        edits = [e for name, e in ablation.items() if part in name]
+        assert len(edits) == 1 and {f for f, _, _ in edits[0]} == {kv.RA}, part
+
+
 def test_fault_phases_exist_in_chip_smoke():
     import chip_smoke
 

@@ -28,13 +28,10 @@
 // owns 128 queries. The scale 1/sqrt(hd)·log2(e) is applied to the
 // fp32 scores, not to q, so q is not rounded a second time.
 //
-// RoPE at head dim 128 (DINOv3 ViT-7B/16: 32 heads of 128): rope_attention_kernel,
-// attention_core's block at kHdT = 128 with the rotation of q's and k's patch
-// rows done in shared memory as their tiles land (attention_core.cuh). One
-// block an SM: Q, the K/V ring and the table take ~177 KB at a 32 x 32 grid,
-// and the accumulators, Q and p 216 registers a thread. The TPU side has no
-// such kernel: the JAX package's ViT has a learned position table and head
-// dim 64.
+// RoPE at head dim 128 (DINOv3 ViT-7B/16: 32 heads of 128) is K1's RoPE mode,
+// rope_attention_kernel in rope_attention.cu: a warp-specialised kernel of its
+// own that runs attention_core's pieces. The TPU side has no such kernel: the
+// JAX package's ViT has a learned position table and head dim 64.
 //
 // fp32 (parity mode, --compute-dtype float32): the products must be IEEE fp32
 // (TF32 keeps ~3 decimal digits and would break the 2e-5 agreement with the
@@ -249,46 +246,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   return (int)cudaGetLastError();
 }
 
-// RoPE at head dim 128: one block (two warpgroups, 128 queries) an SM
-__global__ void __launch_bounds__(attention_core::kThreads, 1)
-rope_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
-                      int N, int64_t sqb, int64_t sqh, int64_t sqn, int64_t skb, int64_t skh,
-                      int64_t skn, int64_t svb, int64_t svh, int64_t svn, int64_t sob,
-                      int64_t soh, int64_t son, float scale_log2, attention_core::Rope rope) {
-  extern __shared__ __align__(1024) unsigned char smem_rope[];
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  attention_core::attention_block<true, false, false, 128, true>(
-      q + b * sqb + h * sqh, k + b * skb + h * skh, v + b * svb + h * svh,
-      o + b * sob + h * soh, sqn, skn, svn, son, blockIdx.x * attention_core::kBlockRows, N, N,
-      scale_log2, smem_rope, rope);
-}
-
 }  // namespace
-
-// q, k, v, o: (B, H, N, 128) bf16 views as vittf_attention_fwd takes them;
-// table: (2, grid_h + grid_w, 32) fp32, 16-byte aligned (cos, then sin; rows
-// by grid row, then by grid column); rows >= prefix of q and k are patches
-// (prefix + grid_h * grid_w = N). Returns cudaGetLastError() after the launch.
-extern "C" int vittf_rope_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                        int B, int H, int N, const int64_t* st,
-                                        float scale_log2, const void* table, int prefix,
-                                        int grid_h, int grid_w, void* stream) {
-  const int smem = attention_core::smem_bytes<128>() +
-                   2 * (grid_h + grid_w) * attention_core::kRopeAngles * (int)sizeof(float);
-  if (prefix < 0 || grid_h < 1 || grid_w < 1 || prefix + grid_h * grid_w != N ||
-      smem > 227 * 1024)
-    return (int)cudaErrorInvalidValue;
-  const int rows = attention_core::kBlockRows;
-  cudaFuncSetAttribute(rope_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid((N + rows - 1) / rows, B * H);
-  rope_attention_kernel<<<grid, attention_core::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, N, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2,
-      attention_core::Rope{static_cast<const float*>(table), prefix, grid_h, grid_w});
-  return (int)cudaGetLastError();
-}
 
 // q, k, v, o: (B, H, N, 64) views, last dim contiguous, given by element strides
 // strides[12] = {q: b, h, n; k: b, h, n; v: b, h, n; o: b, h, n}.

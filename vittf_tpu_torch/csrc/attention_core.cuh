@@ -40,16 +40,8 @@
 // the running max is finite after the first tile and exp2(−inf − m) is 0, not
 // NaN; tiles must be walked from 0 upward for that to hold.
 //
-// Head dim 128 (kHdT = 128, K1's RoPE mode): a row is 256 bytes, held as two
-// 128-byte sub-tiles (dims 0-63, 64-127) of the same swizzled layout, so the
-// scores' product takes eight 16-dim steps over both and P·V two n64 products
-// a step, one per sub-tile. Q (32 KB), a ring of four 32 KB K/V stages and
-// the RoPE table fill ~177 KB, and the accumulators, Q and p take 216
-// registers a thread: one block (two warpgroups) an SM, not two. Taking the softmax of tile + 1
-// beside p_tile·v_tile (a second set of p registers) was measured no faster
-// there, 2.39 against 2.37 ms at the ViT-7B/16 cell's shape.
-//
-// RoPE (kRope, head dim 128 only): DINOv3's axial rotation of the patch rows
+// RoPE (rope_rotate, for K1's RoPE mode in rope_attention.cu, which runs this
+// file's pieces at head dim 128): DINOv3's axial rotation of the patch rows
 // of q and k, x' = x·cos + rotate_half(x)·sin with rotate_half([x1 | x2]) =
 // [−x2 | x1], in fp32 from bf16 and rounded once to bf16, products and sum
 // each rounded as PyTorch's fp32 ops round them. Rows < prefix (CLS,
@@ -57,11 +49,9 @@
 // column p % w. Dims d and d + 64 share one angle: of the 64 angles the
 // first 32 are the grid row's, the next 32 the column's, so the table is
 // (2, h + w, 32) fp32 (cos, then sin; rows 0..h−1 by grid row, h.. by
-// column), copied into shared memory once a block. The thread that copied a
-// row's chunk c of both sub-tiles holds a rotation pair: once its copies have
-// landed it rotates them in place, before the barrier that hands the tile to
-// the tensor cores: Q and K tiles 0 and 1 before the loop, K tile i + 2 in
-// step i, after its products are issued, so the rotation runs beside them.
+// column), held in shared memory. A row of 256 bytes is held as two 128-byte
+// sub-tiles (dims 0-63, 64-127) of the swizzled layout; one call turns chunk
+// c of both.
 //
 // Template parameters: kMax = carry the row max (false: p = exp2(s), for
 // callers whose scores are known to be small); kPreScaled = q already holds
@@ -107,14 +97,10 @@ constexpr int kBlockRows = 64 * kWg;
 constexpr int kOnesBytes = 1024;  // a B operand of ones: the row sums of p come from the tensor cores
 constexpr int kRopeAngles = 32;   // a grid axis's angles at head dim 128
 
-// a block's shared memory at head dim kHdT, less the RoPE table
-template <int kHdT>
-constexpr int smem_bytes() {
-  return kBlockRows * kHdT * 2 + kStages * 2 * kBk * kHdT * 2 + kOnesBytes;
-}
-constexpr int kSmemBytes = smem_bytes<kHd>();
+// a block's shared memory: Q, the K/V ring, the ones
+constexpr int kSmemBytes = kBlockRows * kHd * 2 + kStages * 2 * kBk * kHd * 2 + kOnesBytes;
 
-// K1's RoPE mode: the table in device memory and where its rows apply
+// RoPE: the table in device memory and where its rows apply
 struct Rope {
   const float* table;  // (2, grid_h + grid_w, kRopeAngles) fp32, 16-byte aligned
   int prefix, grid_h, grid_w;
@@ -268,8 +254,8 @@ __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4
 #undef VITTF_ACC32
 #undef VITTF_D32
 
-// K1's RoPE mode: rotate in place the row pair this thread copied (chunk c of
-// both 128-byte sub-tiles of row `row` of a tile of `sub_bytes` a sub-tile),
+// RoPE: rotate in place a row pair (chunk c of both 128-byte sub-tiles of
+// row `row` of a tile of `sub_bytes` a sub-tile),
 // whose index in the (batch, head) is `abs_row`, unless it is a prefix row
 // or lies past n_valid (the zeros of a ragged tile). `tab`: the table in
 // shared memory (see the header).
@@ -306,31 +292,26 @@ __device__ __forceinline__ void rope_rotate(unsigned char* tile, int sub_bytes, 
 // One block's work. q, k, v, o point at row 0 of this (batch, head); ld* are
 // row pitches in elements (rows 16-byte aligned); queries q0.. of n_q, keys
 // 0..n_valid-1. kThreads threads, all of which must call; warp w owns rows
-// 16w... `smem` holds smem_bytes<kHdT>() bytes, 1024-byte aligned, and with
-// kRope the table's 2 (grid_h + grid_w) kRopeAngles floats after them.
+// 16w... `smem` holds kSmemBytes bytes, 1024-byte aligned.
 //
 // The loop is bound by the instructions it issues beside the MMAs (one exp2,
 // one max, one FMA, half a pack per score), so what only the last key tile
 // needs (the row mask of its copies, the -inf mask of its scores) is kept out
 // of the loop's body: the last tile's softmax is a copy of the step of its
 // own, and the output is rescaled only where a row's max moved.
-template <bool kMax, bool kPreScaled, bool kFloorSum = false, int kHdT = kHd, bool kRope = false>
+template <bool kMax, bool kPreScaled, bool kFloorSum = false>
 __device__ __forceinline__ void attention_block(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, int64_t ldq, int64_t ldk, int64_t ldv, int64_t ldo, int q0, int n_q,
-    int n_valid, float scale_log2, unsigned char* smem, const Rope& rope = Rope()) {
-  static_assert(kHdT == 64 || kHdT == 128, "head dim 64 or 128");
-  static_assert(!kRope || kHdT == 128, "RoPE at head dim 128");
-  constexpr int kSub = kHdT / 64;          // 128-byte sub-tiles of a row
-  constexpr int kTileBytes = kBk * kHdT * 2;  // one K or V tile: 8 or 16 KB
+    int n_valid, float scale_log2, unsigned char* smem) {
+  constexpr int kSub = kHd / 64;           // 128-byte sub-tiles of a row: one
+  constexpr int kTileBytes = kBk * kHd * 2;  // one K or V tile: 8 KB
   constexpr int kQSub = kBlockRows * 128;  // one sub-tile of the Q block
   constexpr int kPassRows = kThreads / 8;  // rows the block copies at once: 8 chunks a row
   constexpr int kPasses = kBk / kPassRows;
   const uint32_t q_s = async_copy::shared_addr(smem);
-  const uint32_t kv_s = q_s + kBlockRows * kHdT * 2;
+  const uint32_t kv_s = q_s + kBlockRows * kHd * 2;
   const uint32_t ones_s = kv_s + kStages * 2 * kTileBytes;
-  const uint32_t tab_s = ones_s + kOnesBytes;
-  const float* tab = reinterpret_cast<const float*>(smem + (tab_s - q_s));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int n_tiles = (n_valid + kBk - 1) / kBk;
 
@@ -372,16 +353,8 @@ __device__ __forceinline__ void attention_block(
     }
     cp_async_commit();  // an empty group keeps the count of pending groups uniform
   };
-  // RoPE: this thread's rows of K tile `tile`, once its own copies of it have landed
-  auto rotate_k = [&](int tile) {
-    unsigned char* k_tile = smem + (kv_s - q_s) + (tile % kStages) * 2 * kTileBytes;
-#pragma unroll
-    for (int i = 0; i < kPasses; ++i)
-      rope_rotate(k_tile, kSubBytes, copy_row + i * kPassRows, copy_chunk,
-                  tile * kBk + copy_row + i * kPassRows, n_valid, rope, tab);
-  };
 
-  uint32_t qf[kHdT / 16][4];  // the warp's 16 queries as A fragments, all of hd
+  uint32_t qf[kHd / 16][4];  // the warp's 16 queries as A fragments, all of hd
   float acc[kSub][8][4], s[8][4], m[2] = {-CUDART_INF_F, -CUDART_INF_F}, alpha[2];
   float lsum[4] = {0.f, 0.f, 0.f, 0.f};  // the row sums of the rounded p, as a 16 x 8 MMA tile
   uint32_t pf[4][4];  // p of the tile being multiplied
@@ -397,7 +370,7 @@ __device__ __forceinline__ void attention_block(
     const uint32_t k_s = kv_s + (tile % kStages) * 2 * kTileBytes;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHdT / 16; ++kk)  // 16 dims a step: 32 bytes along the swizzled rows
+    for (int kk = 0; kk < kHd / 16; ++kk)  // 16 dims a step: 32 bytes along the swizzled rows
       wgmma_rs<false>(s, qf[kk], tile_desc(k_s + (kk >> 2) * kSubBytes + (kk & 3) * 32),
                       kk != 0);
     wgmma_commit();
@@ -431,10 +404,6 @@ __device__ __forceinline__ void attention_block(
     load_kv(tile + kStages - 1);  // into the slot tile - 1 used
     issue_scores(tile + 1);
     issue_pv(tile);
-    if (kRope) {  // tile + 2's rows, beside the products; the next barrier hands them on
-      cp_async_wait<kStages - 3>();
-      rotate_k(tile + 2);
-    }
     wgmma_wait<0>(s);
     wgmma_wait<0>(acc);
     pin(lsum);
@@ -444,7 +413,7 @@ __device__ __forceinline__ void attention_block(
       rescale(acc, lsum, alpha);
   };
 
-  // Q (and the RoPE table) ride in the first copy group, with tile 0
+  // Q rides in the first copy group, with tile 0
 #pragma unroll
   for (int i = 0; i < kBlockRows * 8 / kThreads; ++i) {
     const int r = copy_row + i * kPassRows;
@@ -454,28 +423,14 @@ __device__ __forceinline__ void attention_block(
       cp_async16(q_s + u * kQSub + swz(r, copy_chunk),
                  ok ? q + (int64_t)(q0 + r) * ldq + u * 64 + copy_chunk * 8 : q, ok ? 16 : 0);
   }
-  if (kRope)
-    for (int i = threadIdx.x; i < (rope.grid_h + rope.grid_w) * kRopeAngles / 2; i += kThreads)
-      cp_async16(tab_s + 16 * i, rope.table + 4 * i, 16);
   for (int tile = 0; tile < kStages - 1; ++tile) load_kv(tile);
   for (int i = threadIdx.x; i < kOnesBytes / 4; i += kThreads)
     reinterpret_cast<uint32_t*>(smem + (ones_s - q_s))[i] = 0x3F803F80u;  // bf16 1.0, twice
   cp_async_wait<kStages - 2>();
   fence_proxy_async();
   __syncthreads();
-  if (kRope) {  // the table has landed for everyone: Q's rows, tile 0's and tile 1's
-    cp_async_wait<kStages - 3>();
 #pragma unroll
-    for (int i = 0; i < kBlockRows * 8 / kThreads; ++i)
-      rope_rotate(smem, kQSub, copy_row + i * kPassRows, copy_chunk,
-                  q0 + copy_row + i * kPassRows, n_q, rope, tab);
-    rotate_k(0);
-    rotate_k(1);
-    fence_proxy_async();
-    __syncthreads();
-  }
-#pragma unroll
-  for (int kk = 0; kk < kHdT / 16; ++kk)
+  for (int kk = 0; kk < kHd / 16; ++kk)
     ldmatrix_x4(qf[kk], q_s + (kk >> 2) * kQSub +
                             swz(warp * 16 + (lane & 15), (kk & 3) * 2 + (lane >> 4)));
 

@@ -12,9 +12,10 @@ fp32 on the FP32 cores); on CPU tensors it runs ``attention_plain``, the
 
 DINOv3 (head dim 128, no position table) rotates the patch rows of q and k
 by an axial RoPE in every block (``Rope``). On bf16 CUDA tensors that is
-K1's RoPE mode (``rope_attention_kernel``: the rotation done in fp32 as the
-tiles land, no rotated copy of q and k in device memory), which refuses
-other CUDA tensors; on CPU tensors and for ``impl='plain'``, ``rope_plain``
+K1's RoPE mode (``csrc/rope_attention.cu``, one launch of a warp-specialised
+kernel: a TMA producer rotates the tiles in fp32 in shared memory as they
+land, no rotated copy of q and k in device memory), which refuses other
+CUDA tensors; on CPU tensors and for ``impl='plain'``, ``rope_plain``
 then ``attention_plain``. The JAX package has neither: its ViT has a learned
 position table and head dim 64.
 """

@@ -40,6 +40,7 @@ AC, SIM, BL, RB, SO = ("attention_core.cuh", "similarity.cu", "bilateral.cu",
 GC, FB, CG, WC = "gemm_core.cuh", "fused_block.cu", "chain_gemm.cu", "wgmma_common.cuh"
 SW, LN = "swiglu.cu", "layer_norm.cu"
 BS, LS = "blur_stencil.cuh", "lattice_solve.cu"
+RA = "rope_attention.cu"
 
 # (name, chip_smoke phase, [(file, old, new), ...]); a phase without edits is the control.
 # A fault must keep every access inside its arrays: a fault of the card (an
@@ -92,8 +93,10 @@ FAULTS = [
     ("K1 ones operand left unfilled", "attention",
      [(AC, "0x3F803F80u;  // bf16 1.0, twice", "0u;")]),
     ("control: no edit", "rope_attention", []),
+    # K1's RoPE mode (rope_attention.cu; its rotation is attention_core.cuh's rope_rotate)
     ("K1 RoPE: K tiles after the first left unrotated", "rope_attention",
-     [(AC, "      rotate_k(tile + 2);\n", ""), (AC, "    rotate_k(1);\n", "")]),
+     [(RA, "          rotate(ring_s + stage * kStageBytes, kSubBytes, kBk, tile * kBk);",
+       "          if (tile == 0) rotate(ring_s + stage * kStageBytes, kSubBytes, kBk, tile * kBk);")]),
     ("K1 RoPE: prefix rows rotated at patch 0's angles", "rope_attention",
      [(AC, "  const int p = abs_row - rope.prefix;\n  if (p < 0 || abs_row >= n_valid) return;",
        "  const int p = max(abs_row - rope.prefix, 0);\n  if (abs_row >= n_valid) return;")]),
@@ -101,8 +104,19 @@ FAULTS = [
      [(AC, "const int trow = chunk < 4 ? gi : rope.grid_h + (p - gi * rope.grid_w);",
        "const int trow = rope.grid_h + (p - gi * rope.grid_w);")]),
     ("K1 RoPE: V's second 64 dims not multiplied", "rope_attention",
-     [(AC, "#pragma unroll\n      for (int u = 0; u < kSub; ++u)\n        wgmma_rs<true>",
-       "#pragma unroll\n      for (int u = 0; u < 1; ++u)\n        wgmma_rs<true>")]),
+     [(RA, "      for (int u = 0; u < 2; ++u)\n        ac::wgmma_rs<true>",
+       "      for (int u = 0; u < 1; ++u)\n        ac::wgmma_rs<true>")]),
+    # ... and its pipeline
+    ("K1 RoPE: the second consumer computes the first's queries", "rope_attention",
+     [(RA, "wc::swz(row + (lane & 15),", "wc::swz(row % 64 + (lane & 15),")]),
+    ("K1 RoPE: the ragged tile's -inf mask dropped", "rope_attention",
+     [(RA, "    if (decltype(last)::value) ac::mask_tail(s, (tile + 1) * kBk + 2 * t, N);\n", "")]),
+    ("K1 RoPE: the producer rotates only the first ring pass", "rope_attention",
+     [(RA, "          rotate(ring_s + stage * kStageBytes, kSubBytes, kBk, tile * kBk);",
+       "          if (tile < kStages) rotate(ring_s + stage * kStageBytes, kSubBytes, kBk, tile * kBk);")]),
+    ("K1 RoPE: K's dims 64-127 loaded from dims 0-63", "rope_attention",
+     [(RA, "tma_box(k_s + u * kSubBytes, k_map, bar(kKLanded + stage), u * 64, tile * kBk, h, b);",
+       "tma_box(k_s + u * kSubBytes, k_map, bar(kKLanded + stage), 0, tile * kBk, h, b);")]),
     ("control: no edit", "layer_norm_wide", []),
     ("K11 D 4096: rows cut to 8 vectors a lane", "layer_norm_wide",
      [(LN, "default: return vecs <= kMaxVecs ? pick_mode<kMaxVecs>(mode) : nullptr;",
@@ -314,8 +328,9 @@ FAULTS = [
        "make_uint4(__byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x5410),")]),
 ]
 
-# K1 at (8, 6, 4097, 64) bf16 with one part of its loop taken out: what the
-# part costs (the results are wrong, only the times count)
+# K1 at (8, 6, 4097, 64) bf16 and its RoPE mode at the ViT-7B/16 cell's (32,
+# 32, 1029, 128), with one part taken out or done another way: what the part
+# costs (the results are wrong where a part is out: only the times count)
 ATTENTION_ABLATION = [
     ("whole kernel", []),
     ("no exp2 (p = x)", [(AC, '  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
@@ -334,6 +349,16 @@ ATTENTION_ABLATION = [
      [(AC, "    softmax_step<kMax, kPreScaled>(s, m, alpha, pf, scale_log2);\n    if (kMax && __any",
        "    alpha[0] = alpha[1] = 1.f;\n    if (kMax && __any")]),
     ("whole kernel, again", []),
+    ("RoPE mode: whole kernel", []),
+    ("RoPE mode: no rotation (the producer hands tiles on as they land)",
+     [(RA, "        for (int i = r; i < rows * 8; i += kRotators)",
+       "        for (int i = r; i < 0; i += kRotators)")]),
+    ("RoPE mode: consumers in lock step (one barrier for both, no turns)",
+     [(RA, "{ bar_sync(kTurnBar + wg, 256); }", "{ bar_sync(kTurnBar, 256); }"),
+      (RA, "{ bar_arrive(kTurnBar + (wg ^ 1), 256); }", "{}")]),
+    ("RoPE mode: 3 ring slots", [(RA, "constexpr int kStages = 4; ", "constexpr int kStages = 3; ")]),
+    ("RoPE mode: 5 ring slots", [(RA, "constexpr int kStages = 4; ", "constexpr int kStages = 5; ")]),
+    ("RoPE mode: whole kernel, again", []),
 ]
 
 # K2 at the request's shape: the cost of g's two devices
@@ -487,7 +512,10 @@ def _time_attention(cs, torch):
                for _ in range(3))
     ours = [round(cs.cuda_ms(lambda: cs.attention(q, k, v), reps=21), 4) for _ in range(3)]
     lib = cs.cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), reps=21)
-    return f"kernel {ours} ms, scaled_dot_product_attention {round(lib, 4)} ms"
+    qr, kr, vr, rope = cs.rope_case(cs.ROPE_SHAPE, cs.ROPE_GRID, gen)
+    rope_ms = [round(cs.ten_call_ms(lambda: cs.attention(qr, kr, vr, rope)), 4) for _ in range(3)]
+    return (f"kernel {ours} ms, scaled_dot_product_attention {round(lib, 4)} ms; "
+            f"RoPE mode {rope_ms} ms")
 
 
 def _time_similarity(cs, torch):
